@@ -1,0 +1,72 @@
+"""The port's GELU (vit_ed_tpu_torch/ops/gelu.py) against the JAX package's
+``gelu_exact``, run eagerly, on every one of the 65,536 bf16 bit patterns.
+
+XLA on the CPU flushes subnormal values to zero, PyTorch keeps them: the
+only mismatches allowed are inputs where a step of the chain is subnormal
+and the JAX result is the flushed zero (514 inputs on jax 0.9.0 / torch
+2.13 CPU).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from vit_ed_tpu.ops.gelu import gelu_exact as jax_gelu
+from vit_ed_tpu_torch.ops.gelu import gelu_exact
+
+_TINY = np.finfo(np.float32).tiny  # smallest normal: below it, subnormal
+
+
+def _all_bf16():
+    bits = np.arange(65536, dtype=np.uint16)
+    return bits, torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+
+def test_gelu_bf16_exhaustive_against_jax():
+    bits, x = _all_bf16()
+    ours = gelu_exact(x)
+    assert ours.dtype == torch.bfloat16
+    ref = jax_gelu(jax.lax.bitcast_convert_type(jnp.asarray(bits), jnp.bfloat16))
+    ob = ours.view(torch.int16).numpy().view(np.uint16)
+    rb = np.asarray(jax.lax.bitcast_convert_type(ref, jnp.uint16))
+    of = ours.float().numpy()
+    rf = np.asarray(ref.astype(jnp.float32))
+    diff = (ob != rb) & ~(np.isnan(of) & np.isnan(rf))
+    assert diff.sum() < 1024, diff.sum()
+    # every mismatch is XLA flushing a subnormal step of the chain to zero
+    assert np.all(rf[diff] == 0.0)
+    # each step's float32 value before its rounding to bf16
+    xf = x.float()
+    sqrt_half = torch.tensor(np.sqrt(0.5), dtype=torch.bfloat16).float()
+    half_x = 0.5 * xf
+    arg = -xf * sqrt_half
+    erfc = torch.special.erfc(arg.bfloat16().float())
+    prod = half_x.bfloat16().float() * erfc.bfloat16().float()
+    subnormal = np.zeros(len(bits), bool)
+    for st in (half_x, arg, erfc, prod):
+        a = np.abs(st.numpy())
+        subnormal |= (a > 0) & (a < _TINY)
+    assert np.all(subnormal[diff])
+
+
+def test_gelu_f32_is_exact_gelu():
+    x = np.linspace(-8.0, 8.0, 4097, dtype=np.float32)
+    ours = gelu_exact(torch.from_numpy(x)).numpy()
+    ref = np.asarray(jax.nn.gelu(jnp.asarray(x), approximate=False))
+    # XLA's f32 erfc is less accurate in the far tail (it returns 0 for
+    # gelu(-8) ~ -5e-15): absolute 1e-6 there
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
+    # F.gelu's 1 + erf(x/sqrt 2) cancels in the negative tail: same bound
+    np.testing.assert_allclose(
+        ours, torch.nn.functional.gelu(torch.from_numpy(x)).numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_gelu_bf16_is_not_one_rounding():
+    """The chain rounds at each step: ``F.gelu`` (one rounding) is not the
+    reference activation on bf16, which is why the port spells it out."""
+    _, x = _all_bf16()
+    fin = torch.isfinite(x)
+    differs = (gelu_exact(x) != torch.nn.functional.gelu(x)) & fin
+    assert int(differs.sum()) > 0

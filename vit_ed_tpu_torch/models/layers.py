@@ -1,0 +1,256 @@
+"""ViT building blocks of the port (``vit_ed_tpu/models/layers.py``).
+
+Module and parameter names follow the reference timm layout
+(``blocks.0.attn.qkv.weight``, ``cross_blocks.3.cross_attn.kv.bias``, ...),
+so converted JAX params and reference ``.pth`` files load with
+``strict=True``.
+
+Numerics follow flax with a compute dtype, which is what the JAX package
+runs. Parameters stay float32 and are cast to the activation dtype at
+use; the chosen rounding points, on bf16 activations:
+
+- ``Linear``: ``round(round(x @ W) + round(b))`` — flax ``Dense`` rounds
+  the product and then adds the bias in bf16 (``F.linear`` with a bias
+  would round once);
+- ``LayerNorm``: statistics, normalisation, scale and bias in float32,
+  one rounding at the end (flax computes its statistics in f32);
+- ``PatchEmbed``: the conv in bf16 (f32 accumulate), then the bf16 bias;
+- GELU: the bf16 chain of ops/gelu.py;
+- residual adds and LayerScale in bf16, as flax does on bf16 streams.
+
+In float32 every one of these is the plain float32 computation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vit_ed_tpu_torch.ops.attention import (
+    fused_attention_packed_kv,
+    fused_attention_packed_kv_shared,
+    fused_attention_packed_qkv,
+    fused_attention_packed_qkv_cls,
+)
+from vit_ed_tpu_torch.ops.gelu import gelu_exact
+
+
+class Linear(nn.Module):
+    """Dense layer with flax's bf16 rounding (see module docstring)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        nn.init.trunc_normal_(self.weight, std=0.02)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in float32 and rounded once to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth; the scoring path runs in eval, where it is the
+    identity. Training (per-sample masks) comes with the training slice."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError(
+                "stochastic depth in training mode comes with the training "
+                "slice (ROADMAP queue A item 6)")
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """Conv patch embedding: NHWC image [B, H, W, 3] -> tokens [B, T, D]."""
+
+    def __init__(self, patch_size: int = 16, in_chans: int = 3,
+                 embed_dim: int = 768):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.proj.weight.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.proj.stride)
+        y = y + self.proj.bias.to(x.dtype)[:, None, None]
+        return y.flatten(2).transpose(1, 2)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2 (timm Mlp; dropout is eval-identity)."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class LayerScale(nn.Module):
+    """Learned per-channel residual scaling."""
+
+    def __init__(self, dim: int, init_values: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
+def _scale(dim: int, init_values: Optional[float]) -> nn.Module:
+    return LayerScale(dim, init_values) if init_values else nn.Identity()
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention on the fused qkv projection."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, cls_only: bool = False) -> torch.Tensor:
+        """``cls_only=True`` returns the output of the FIRST (CLS) query row
+        only, [B, 1, C]; its keys and values still cover the whole
+        sequence (the pair scan's last-decoder-block short-circuit)."""
+        qkv = self.qkv(x)
+        if cls_only:
+            out = fused_attention_packed_qkv_cls(qkv, self.num_heads)
+        else:
+            out = fused_attention_packed_qkv(qkv, self.num_heads)
+        return self.proj(out)
+
+
+class CrossAttention(nn.Module):
+    """Q from the decoder stream, K/V from the encoder context, split into
+    ``kv_for`` (the context-only fused K/V projection, computed once per
+    x1 row by the pair scan) and ``attend_kv`` / ``attend_kv_shared``."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = Linear(dim, dim, bias=qkv_bias)
+        self.kv = Linear(dim, dim * 2, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
+
+    def kv_for(self, context: torch.Tensor) -> torch.Tensor:
+        return self.kv(context)
+
+    def attend_kv(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        """Attention against a per-pair precomputed kv [B, Sk, 2C]."""
+        return self.proj(fused_attention_packed_kv(self.q(x), kv,
+                                                   self.num_heads))
+
+    def attend_kv_shared(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        """``attend_kv`` where ONE context kv [1, Sk, 2C] serves the whole
+        batch (the row-sharded O(N^2) scan chunk)."""
+        return self.proj(fused_attention_packed_kv_shared(self.q(x), kv,
+                                                          self.num_heads))
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        return self.attend_kv(x, self.kv_for(context))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer encoder block."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, init_values: Optional[float] = None,
+                 drop_path: float = 0.0):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.ls1 = _scale(dim, init_values)
+        self.drop_path1 = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.ls2 = _scale(dim, init_values)
+        self.drop_path2 = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop_path1(self.ls1(self.attn(self.norm1(x))))
+        return x + self.drop_path2(self.ls2(self.mlp(self.norm2(x))))
+
+
+class CrossBlock(nn.Module):
+    """Decoder block: self-attn -> cross-attn(context) -> MLP, split into
+    the parts the O(N^2) pair scan schedules separately."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, init_values: Optional[float] = None,
+                 drop_path: float = 0.0):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.ls1 = _scale(dim, init_values)
+        self.drop_path1 = DropPath(drop_path)
+        self.norm_cross = LayerNorm(dim)
+        self.norm_context = LayerNorm(dim)
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias)
+        self.ls_cross = _scale(dim, init_values)
+        self.drop_path_cross = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.ls2 = _scale(dim, init_values)
+        self.drop_path2 = DropPath(drop_path)
+
+    def self_part(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.drop_path1(self.ls1(self.attn(self.norm1(x))))
+
+    def context_kv(self, context: torch.Tensor) -> torch.Tensor:
+        """norm_context + fused K/V projection: depends on the encoder
+        features only, so the scan computes it once per x1 row."""
+        return self.cross_attn.kv_for(self.norm_context(context))
+
+    def _mlp(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop_path_cross(self.ls_cross(y))
+        return x + self.drop_path2(self.ls2(self.mlp(self.norm2(x))))
+
+    def cross_mlp_kv(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        """cross-attention + MLP with a precomputed ``context_kv``."""
+        return self._mlp(x, self.cross_attn.attend_kv(self.norm_cross(x), kv))
+
+    def cross_mlp_kv_shared(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        """``cross_mlp_kv`` with ONE shared ``context_kv`` row [1, Sk, 2C]."""
+        return self._mlp(
+            x, self.cross_attn.attend_kv_shared(self.norm_cross(x), kv))
+
+    def cls_self_part(self, x: torch.Tensor) -> torch.Tensor:
+        """``self_part`` producing only the CLS row [B, 1, C] — valid for
+        the LAST decoder block of a scoring pass, whose other rows feed
+        nothing."""
+        y = self.attn(self.norm1(x), cls_only=True)
+        return x[:, :1] + self.drop_path1(self.ls1(y))
+
+    def cross_mlp(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        return self.cross_mlp_kv(x, self.context_kv(context))
+
+    def cls_call(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        """Whole block producing only the CLS row [B, 1, C]."""
+        return self.cross_mlp(self.cls_self_part(x), context)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        return self.cross_mlp(self.self_part(x), context)
