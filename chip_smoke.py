@@ -18,10 +18,27 @@ from the JAX package. Phases, each printing its own lines:
 4. the full-width, full-depth pjs-S patch16_512 model from a seed: f32 on
    the card against f32 on the CPU, bf16 against f32 on the card, and the
    launches of one 64-pair score_tokens_row chunk;
-5. the main path end to end: ``python -m vit_ed_tpu_torch.hisfrag --mode
-   test`` (in process, bf16, configs/hisfrag/hisfrag20_patch16_512.yaml)
-   on a synthetic corpus made from a seed, with every wrapper's launch
-   count reset before and read after.
+5. the scoring main path end to end: ``python -m vit_ed_tpu_torch.hisfrag
+   --mode test`` (in process, bf16,
+   configs/hisfrag/hisfrag20_patch16_512.yaml) on a synthetic corpus made
+   from a seed, with every wrapper's launch count reset before and read
+   after;
+6. backward kernel against plain: every attention VJP on the card (B=8,
+   S=1024/1025, CLS Sq=1; f32 within 1e-4 of the gradient's max, bf16
+   within 2e-2) against ``pair_attention_backward_plain``, and two launches
+   bit-equal (the kernels use no atomics);
+7. backward kernel times at the training shapes (49 pairs, bf16): the
+   kernel, the plain version, the backward of
+   scaled_dot_product_attention through autograd as a yardstick, and the
+   card's bound;
+8. one full-width, full-depth f32 loss + backward of the hisfrag trainer on
+   3 images and their mined pairs: the card's gradients against the CPU's
+   (plain versions), per parameter;
+9. the training main path end to end: ``python -m vit_ed_tpu_torch.hisfrag
+   --mode train`` (in process, bf16, DROP_PATH_RATE 0.1, 16 images -> 49
+   pairs per step, one epoch, validate before and after) on a synthetic
+   corpus, launch counts reset before and read after; then the checkpoint
+   is reloaded and one step is broken down with torch.profiler.
 
 Any failure raises (exit code != 0). The second-to-last lines are the
 card (``nvidia-smi`` name, power limit) and one JSON object with the
@@ -55,6 +72,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SOURCE = "vit_ed_tpu_torch/csrc/pair_attention.cu"
+BWD_SOURCE = "vit_ed_tpu_torch/csrc/pair_attention_bwd.cu"
+BWD_REPLACES = "vit_ed_tpu/ops/attention.py:613"   # _pair_backward
 # wrapper -> the JAX function that reaches pl.pallas_call for it
 REPLACES = {
     "qkv": "vit_ed_tpu/ops/attention.py:687",        # _pair_forward_qkv
@@ -63,7 +82,15 @@ REPLACES = {
     "kv": "vit_ed_tpu/ops/attention.py:740",         # _pair_forward_q_kv
     "packed": "vit_ed_tpu/ops/attention.py:500",     # _pair_forward
 }
-MAIN_PATH = ("qkv", "kv_shared", "qkv_cls")
+MAIN_PATH = ("qkv", "kv_shared", "qkv_cls")        # the scan (phase 5)
+TRAIN_PATH_FWD = ("qkv", "qkv_cls", "kv")            # training (phase 9)
+TRAIN_PATH_BWD = ("qkv_bwd", "qkv_cls_bwd", "kv_bwd")
+# launches of one optimizer step at depth 12 + 12 with the CLS short-circuit:
+# 12 encoder self-attentions, 11 + 1 (CLS) decoder self-attentions and 12
+# per-pair cross-attentions, each once forward and once backward
+STEP_LAUNCHES = {"qkv": 23, "qkv_cls": 1, "kv": 12,
+                 "qkv_bwd": 23, "qkv_cls_bwd": 1, "kv_bwd": 12}
+TRAIN_BATCH, TRAIN_PAIRS = 16, 49
 # launches of one score_tokens_row chunk with 12 decoder blocks: self-attn
 # in blocks 1..10 (block 0's is hoisted, block 11's is CLS-only), one
 # shared-kv cross-attention per block; phase 4 measures and checks it
@@ -267,7 +294,7 @@ def phase_model(gen):
         A.reset_launch_counts()
         model.score_tokens_row(kv_row, adv)
         torch.cuda.synchronize()
-    per_chunk = dict(A.launches)
+    per_chunk = {name: A.launches[name] for name in CHUNK_LAUNCHES}
     print(f"  launches per 64-pair score_tokens_row chunk: {per_chunk}", flush=True)
     chunk_breakdown(model, kv_row, adv)
     if per_chunk != CHUNK_LAUNCHES:
@@ -302,13 +329,13 @@ def chunk_breakdown(model, kv_row, adv):
         print(f"    {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}%  x{cnt:<4d} {key[:90]}")
 
 
-def write_corpus(root, writers=16, pages=2, frags=2, seed=0):
-    """Synthetic HisFrag test split: writer-correlated noise textures as
-    ``test/w{W}_{P}_{F}.jpg``, ~600 x 700 px."""
+def write_corpus(root, writers=16, pages=2, frags=2, seed=0, sub="test"):
+    """Synthetic HisFrag split: writer-correlated noise textures as
+    ``<sub>/w{W}_{P}_{F}.jpg``, ~600 x 700 px."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    d = os.path.join(root, "test")
+    d = os.path.join(root, sub)
     os.makedirs(d, exist_ok=True)
     for w in range(writers):
         base = rng.integers(0, 256, size=(600 + 8 * w, 700, 3))
@@ -335,7 +362,7 @@ def phase_main_path(tmp):
         "--output", os.path.join(tmp, "out"), "--tag", "smoke"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = dict(A.launches)
+    counts = {name: A.launches[name] for name in REPLACES}
     print(f"  mAP {metrics[0]:.3f}\tTop 1 {metrics[1]:.3f}\t"
           f"Pr@k10 {metrics[2]:.3f}\tPr@k100 {metrics[3]:.3f}")
     print(f"  {n} images, {scorer.pairs_done} pairs scored in "
@@ -381,6 +408,352 @@ def phase_main_path(tmp):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the training slice: backward kernels, gradients, the train main path
+# ---------------------------------------------------------------------------
+
+VJP_WRAPPERS = {
+    "qkv": (A.fused_attention_packed_qkv, ("qkv",)),
+    "qkv_cls": (A.fused_attention_packed_qkv_cls, ("qkv",)),
+    "kv": (A.fused_attention_packed_kv, ("q", "kv")),
+    "packed": (A.fused_attention_packed, ("q", "k", "v")),
+}
+
+
+def vjp_inputs(gen, dtype, b, s, sk):
+    return {"qkv": rand(gen, b, s, 3 * C, dtype=dtype),
+            "q": rand(gen, b, s, C, dtype=dtype),
+            "kv": rand(gen, b, sk, 2 * C, dtype=dtype),
+            "k": rand(gen, b, sk, C, dtype=dtype),
+            "v": rand(gen, b, sk, C, dtype=dtype),
+            "do": rand(gen, b, s, C, dtype=dtype)}
+
+
+def vjp_graph(name, t):
+    """(differentiable inputs, output, cotangent) of one wrapper call."""
+    fn, names = VJP_WRAPPERS[name]
+    args = [t[n].detach().requires_grad_() for n in names]
+    out = fn(*args, H)
+    return args, out, t["do"][:, :out.shape[1]].contiguous()
+
+
+def plain_grads(name, t, do):
+    """``pair_attention_backward_plain`` on the wrapper's q, k, v, put into
+    the wrapper's gradient layout."""
+    _fn, names = VJP_WRAPPERS[name]
+    qkv, cols, c, rows = A._operands(name, [t[n] for n in names])
+    dq, dk, dv = A.pair_attention_backward_plain(
+        *A._slices(qkv, cols, c, rows), do, H, D ** -0.5)
+    if len(names) == 1:
+        pad = torch.zeros_like(dk)
+        pad[:, :dq.shape[1]] = dq
+        return [torch.cat([pad, dk, dv], -1)]
+    if len(names) == 2:
+        return [dq, torch.cat([dk, dv], -1)]
+    return [dq, dk, dv]
+
+
+def phase_backward_vs_plain(gen):
+    print("== phase 6: backward kernel against plain (B=8, C=384, H=6); "
+          "design: two launches, fixed summation order, no atomics", flush=True)
+    err = {name: 0.0 for name in VJP_WRAPPERS}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (1024, 1025):
+            t = vjp_inputs(gen, dtype, 8, s, 1024)
+            for name in VJP_WRAPPERS:
+                args, out, do = vjp_graph(name, t)
+                got = torch.autograd.grad(out, args, do, retain_graph=True)
+                again = torch.autograd.grad(out, args, do)
+                ref = plain_grads(name, t, do)
+                torch.cuda.synchronize()
+                worst = 0.0
+                for g, g2, r in zip(got, again, ref):
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"{name}_bwd: two launches differ")
+                    e = (g.float() - r.float()).abs().max().item()
+                    mx = r.float().abs().max().item()
+                    rel = e / (mx if dtype == torch.float32 else max(mx, 1.0))
+                    worst = max(worst, rel)
+                    err[name] = max(err[name], e)
+                ok = worst <= TOL[dtype] and all(torch.isfinite(g).all() for g in got)
+                print(f"  {name + '_bwd':12s} {str(dtype)[6:]:8s} S={s} "
+                      f"max|kernel-plain|/max|grad|={worst:.3e} tol={TOL[dtype]:g} "
+                      f"bit-equal twice {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name}_bwd {dtype} S={s}: kernel != plain")
+                if name == "qkv_cls" and torch.count_nonzero(got[0][:, 1:, :C]):
+                    raise AssertionError("CLS backward: dq rows past 0 not zero")
+    return err
+
+
+def bwd_bound(name, b, s, sk):
+    """(bound_ms, bound_by) of one backward: 10 * B * H * Sq * Sk * 64 useful
+    FLOPs (five products) over the bf16 peak, against the bytes of q, k, v,
+    do read once and the whole gradient written once over HBM."""
+    sq = 1 if name == "qkv_cls" else s
+    flops = 10 * b * H * sq * sk * D
+    if name in ("qkv", "qkv_cls"):
+        el_in = (b * s * 3 * C if name == "qkv" else b * (C + 2 * sk * C)) + b * sq * C
+        el_out = b * s * 3 * C
+    else:
+        el_in = b * s * C + b * sk * 2 * C + b * sq * C
+        el_out = el_in - b * sq * C
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * (el_in + el_out) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_backward_times(gen):
+    print(f"== phase 7: backward kernel times at the training shapes "
+          f"(B={TRAIN_PAIRS} pairs, bf16)", flush=True)
+    b, s, sk = TRAIN_PAIRS, 1025, 1024
+    t = vjp_inputs(gen, torch.bfloat16, b, s, sk)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for name, (_fn, names) in VJP_WRAPPERS.items():
+        kv_len = s if name in ("qkv", "qkv_cls") else sk
+        args, out, do = vjp_graph(name, t)
+        qkv, cols, c, rows = A._operands(name, [t[n] for n in names])
+        q, k, v = (heads(x).requires_grad_() for x in A._slices(qkv, cols, c, rows))
+        lib_out = sdpa(q, k, v)
+        lib_do = heads(do)
+        r = {"ms": timed(lambda: torch.autograd.grad(out, args, do, retain_graph=True)),
+             "plain_ms": timed(lambda: plain_grads(name, t, do), n=5, inner=1),
+             "library_ms": timed(lambda: torch.autograd.grad(
+                 lib_out, (q, k, v), lib_do, retain_graph=True))}
+        r["bound_ms"], r["bound_by"] = bwd_bound(name, b, s, kv_len)
+        res[name + "_bwd"] = r
+        print(f"  {name + '_bwd':12s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+              f"  sdpa backward {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it); "
+              f"{STEP_LAUNCHES.get(name + '_bwd', 0)} launches per train step", flush=True)
+        del out, lib_out, q, k, v
+    # the encoder's backward runs at the image batch, not the pair batch
+    te = vjp_inputs(gen, torch.bfloat16, TRAIN_BATCH, 1024, 1024)
+    args, out, do = vjp_graph("qkv", te)
+    enc = timed(lambda: torch.autograd.grad(out, args, do, retain_graph=True))
+    bound_ms, by = bwd_bound("qkv", TRAIN_BATCH, 1024, 1024)
+    print(f"  qkv_bwd at the encoder's shape (B={TRAIN_BATCH}, S=1024): "
+          f"{enc:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    # the per-pair cross-attention forward, first on a main path here
+    kern, plain, lib, _ = cases(gen, torch.bfloat16, b, s, sk)["kv"]
+    r = {"ms": timed(kern), "plain_ms": timed(plain, inner=1), "library_ms": timed(lib)}
+    r["bound_ms"], r["bound_by"] = bound("kv", b, s, sk)
+    res["kv"] = r
+    print(f"  kv (forward)  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+          f"sdpa {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); {STEP_LAUNCHES['kv']} launches per train step", flush=True)
+    del t, te, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_argv(data, out, tag, *extra):
+    return ["--cfg", FLAGSHIP_CFG, "--data-path", data, "--mode", "train",
+            "--output", out, "--tag", tag, *extra]
+
+
+def phase_gradients(tmp):
+    from vit_ed_tpu_torch.hisfrag import HisfragTrainer, parse_option
+
+    print("== phase 8: one full-width f32 loss + backward, card against CPU "
+          "(3 images, their mined pairs, depth 12 + 12, drop path 0)", flush=True)
+    rng = np.random.default_rng(1)
+    samples = rng.normal(size=(3, 512, 512, 3)).astype(np.float32)
+    targets = np.asarray([0, 0, 1], np.int32)
+    grads, losses = {}, {}
+    for device in ("cpu", "cuda"):
+        # no data path: the batch below is made here, no loader is built
+        trainer = HisfragTrainer(parse_option(train_argv(
+            os.path.join(tmp, "none"), os.path.join(tmp, "out"), f"grad_{device}",
+            "--device", device, "--disable_amp", "--batch-size", "3", "--opts",
+            "MODEL.DROP_PATH_RATE", "0.0", "TRAIN.AUTO_RESUME", "False",
+            "TPU.MAX_TRAIN_PAIRS", "3")))
+        trainer.setup_training(1)
+        np.random.seed(0)
+        batch = trainer.prepare_data(samples, targets)
+        t0 = time.time()
+        trainer.model.train()
+        A.reset_launch_counts()
+        loss = trainer.loss_fn(trainer.model, trainer._to_device(batch))
+        loss.backward()
+        losses[device] = loss.item()
+        grads[device] = {n: p.grad.detach().cpu() for n, p in
+                         trainer.model.named_parameters() if p.grad is not None}
+        missing = [n for n, p in trainer.model.named_parameters() if p.grad is None]
+        print(f"  {device}: {int(batch['pair_mask'].sum())} live pairs, loss "
+              f"{losses[device]:.6f}, {len(grads[device])} gradients in "
+              f"{time.time() - t0:.1f}s; launches {nonzero(A.launches)}", flush=True)
+        if missing:
+            raise AssertionError(f"parameters without a gradient: {missing[:5]}")
+        del trainer
+    torch.cuda.empty_cache()
+    worst, worst_name = 0.0, ""
+    for name, ref in grads["cpu"].items():
+        rel = ((grads["cuda"][name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"  loss gap {abs(losses['cuda'] - losses['cpu']):.3e}; worst gradient "
+          f"max|card-CPU|/max|grad| = {worst:.3e} at {worst_name} (tol 1e-3)", flush=True)
+    if not (worst <= 1e-3 and abs(losses["cuda"] - losses["cpu"]) <= 1e-4):
+        raise AssertionError("card gradients differ from the CPU's")
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_train_path(tmp):
+    from vit_ed_tpu_torch import hisfrag
+    from vit_ed_tpu_torch.models.build import build_model as build
+    from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
+
+    print(f"== phase 9: training main path, python -m vit_ed_tpu_torch.hisfrag "
+          f"--mode train (bf16, drop path 0.1, {TRAIN_BATCH} images -> "
+          f"{TRAIN_PAIRS} pairs per step)", flush=True)
+    data = os.path.join(tmp, "train_data")
+    n = write_corpus(data, sub="train", seed=1)
+    steps = []
+    inner = hisfrag.HisfragTrainer.train_step
+
+    def recorded(self, micro_batches):
+        before = dict(A.launches)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item(),
+                      "grad_norm": norm.item(),
+                      "pairs": int(sum(b["pair_mask"].sum() for b in micro_batches)),
+                      "launches": {k: A.launches[k] - before[k] for k in STEP_LAUNCHES}})
+        return loss, norm
+
+    argv = train_argv(data, os.path.join(tmp, "out"), "train",
+                      "--batch-size", str(TRAIN_BATCH), "--opts",
+                      "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0",
+                      "PRINT_FREQ", "2")
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    hisfrag.HisfragTrainer.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = hisfrag.main(argv)
+    finally:
+        hisfrag.HisfragTrainer.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    ms = [s["ms"] for s in steps[1:]]      # the first step warms cuBLAS up
+    pairs = sum(s["pairs"] for s in steps[1:])
+    print(f"  {n} train-dir images, {len(steps)} optimizer steps; step "
+          f"{np.median(ms):.1f} ms median ({min(ms):.1f}-{max(ms):.1f}, first "
+          f"{steps[0]['ms']:.1f}); {pairs / (sum(ms) / 1e3):.1f} trained pairs/s "
+          f"(live pairs over step time, host copy included; the loader's "
+          f"threads decode and augment the next batches meanwhile); "
+          f"{wall:.1f}s with model build, two validates and the checkpoint; "
+          f"peak device memory {peak:.2f} GiB")
+    print(f"  step ms in order {[round(s['ms'], 1) for s in steps]}")
+    print(f"  loss {[round(s['loss'], 4) for s in steps]}")
+    print(f"  grad_norm {[round(s['grad_norm'], 3) for s in steps]}")
+    print(f"  launches per step {steps[-1]['launches']}; on the whole path "
+          f"{nonzero(counts)}", flush=True)
+    if len(steps) < 8 or trainer.step != len(steps):
+        raise AssertionError(f"expected >= 8 optimizer steps, ran {len(steps)}")
+    for s in steps:
+        if not (np.isfinite(s["loss"]) and s["loss"] > 0
+                and np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0):
+            raise AssertionError(f"loss / grad_norm not finite and non-zero: {s}")
+        if s["launches"] != STEP_LAUNCHES:
+            raise AssertionError(f"unexpected launches in a step: {s['launches']}")
+    for name in TRAIN_PATH_FWD + TRAIN_PATH_BWD:
+        if counts[name] <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+    if not 0.0 <= trainer.min_loss <= 1.0:
+        raise AssertionError(f"validate gave {trainer.min_loss}")
+
+    # parameters changed, and the checkpoint holds them
+    torch.manual_seed(trainer.config.SEED)
+    init = build(trainer.config, torch.device("cpu")).state_dict()
+    now = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    moved = sum(not torch.equal(init[k], now[k]) for k in init)
+    tree = load_checkpoint(os.path.join(trainer.config.OUTPUT, "checkpoint.ckpt"))
+    same = all(torch.equal(tree["model"][k], now[k]) for k in now)
+    print(f"  {moved} of {len(init)} parameter tensors changed; checkpoint "
+          f"reloaded: step {tree['step']}, epoch {tree['epoch']}, model equal "
+          f"{same}", flush=True)
+    if moved < len(init) - 2 or not same or tree["step"] != len(steps):
+        raise AssertionError("parameters did not move or the checkpoint differs")
+    step_breakdown(trainer)
+    host_input_cost(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def host_input_cost(trainer):
+    """Host seconds to decode and augment one training image, one thread,
+    nothing else running: what the loader's threads spend per batch while
+    the step's Python thread competes with them for the interpreter."""
+    ds = trainer.get_dataloader("train").dataset
+    t0 = time.time()
+    for i in range(8):
+        ds[i]
+    per = (time.time() - t0) / 8
+    print(f"  host input: {per * 1e3:.0f} ms per image (JPEG decode + train "
+          f"augmentation, numpy/PIL, one thread) = {per * TRAIN_BATCH:.2f} s of "
+          f"host work per {TRAIN_BATCH}-image batch over "
+          f"{trainer.config.DATA.NUM_WORKERS} loader threads", flush=True)
+
+
+def step_breakdown(trainer):
+    """Where one train step goes: forward / backward / optimizer by CUDA
+    events, and torch.profiler's device time by kernel over two steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_ed_tpu_torch.train.optim import clip_grad_norm, set_lr
+
+    samples, targets = next(iter(trainer.get_dataloader("train")))
+    host = trainer.prepare_data(samples, targets)
+    batch = trainer._to_device(host)
+    model, opt = trainer.model.train(), trainer.optimizer
+    parts = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = trainer.loss_fn(model, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        clip_grad_norm(model.parameters(), trainer.config.TRAIN.CLIP_GRAD)
+        set_lr(opt, trainer.schedule(trainer.step))
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd, bwd, upd = np.median(np.asarray(parts), axis=0)
+    print(f"  one step by CUDA events: forward {fwd:.1f} ms, backward {bwd:.1f} ms, "
+          f"clip + optimizer {upd:.1f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(2):
+            trainer.train_step([host])
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / 2
+    rows = [(e.key, e.self_device_time_total / 2e3, e.count // 2)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"  profiler: device time {busy:.1f} ms/step of {wall:.1f} ms wall under "
+          f"the profiler ({len(rows)} kernels, {sum(r[2] for r in rows)} launches/step)"
+          + ("" if rows else " (not measured: the profiler saw no device time)"))
+    for key, t, cnt in rows[:14]:
+        print(f"    {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}%  x{cnt:<4d} {key[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -407,10 +780,17 @@ def main():
     phase_model(gen)
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase_main_path(tmp)
+        bwd_err = phase_backward_vs_plain(gen)
+        train_times = phase_backward_times(gen)
+        phase_gradients(tmp)
+        train_counts = phase_train_path(tmp)
 
-    for name in ("kv", "packed"):
-        print(f"  off the main path, {name}: {json.dumps(times[name])} "
-              f"max_abs_err {err[name]:.3e}")
+    print(f"  off every main path, packed: {json.dumps(times['packed'])} "
+          f"max_abs_err {err['packed']:.3e}; packed_bwd: "
+          f"{json.dumps(train_times['packed_bwd'])} max_abs_err "
+          f"{bwd_err['packed']:.3e}")
+    # the scan's kernels carry phase 5's launches and phase 3's times; the
+    # training path's carry phase 9's launches and phase 7's times
     kernels = [{
         "name": f"pair_attention_{name}",
         "route": "cuda",
@@ -420,6 +800,19 @@ def main():
         "max_abs_err": err[name],
         **times[name],
     } for name in MAIN_PATH]
+    kernels.append({
+        "name": "pair_attention_kv", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["kv"], "launches": train_counts["kv"],
+        "max_abs_err": err["kv"], **train_times["kv"]})
+    kernels += [{
+        "name": f"pair_attention_{name}",
+        "route": "cuda",
+        "source": BWD_SOURCE,
+        "replaces": BWD_REPLACES,
+        "launches": train_counts[name],
+        "max_abs_err": bwd_err[name[:-4]],
+        **train_times[name],
+    } for name in TRAIN_PATH_BWD]
     print(f"  total {time.time() - t_start:.1f}s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-"""The port's entry point ``python -m vit_ed_tpu_torch.hisfrag --mode test``
-against the JAX CLI (``hisfrag.py --mode test``) on a tiny synthetic JPEG
-corpus, both loading one ``.pth`` written from JAX params; plus the
-package's import rule and its device rule."""
+"""The port's entry point ``python -m vit_ed_tpu_torch.hisfrag``: ``--mode
+test`` against the JAX CLI (``hisfrag.py --mode test``) on a tiny synthetic
+JPEG corpus, both loading one ``.pth`` written from JAX params; ``--mode
+train`` (two epochs, checkpoints, auto-resume) and ``--mode eval`` on the
+CPU; plus the package's import rule and its device rule."""
 
 import ast
 import csv
@@ -23,9 +24,9 @@ SHRINK = ["MODEL.PJS.EMBED_DIM", "128", "MODEL.PJS.NUM_HEADS", "2",
 CFG = str(ROOT / "configs" / "hisfrag" / "hisfrag20_patch16_512.yaml")
 
 
-def _write_corpus(root, n_writers=4, pages=2, frags=2):
+def _write_corpus(root, n_writers=4, pages=2, frags=2, sub="test"):
     rng = np.random.default_rng(3)
-    d = os.path.join(root, "test")
+    d = os.path.join(root, sub)
     os.makedirs(d, exist_ok=True)
     for w in range(n_writers):
         base = rng.integers(0, 255, size=(72, 90, 3), dtype=np.uint8)
@@ -160,3 +161,97 @@ def test_entry_point_raises_without_a_card(monkeypatch, corpus):
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--cfg", CFG, "--data-path", data, "--mode", "test"])
     assert resolve_device("cpu").type == "cpu"
+
+
+TRAIN_OPTS = SHRINK + ["TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "5",
+                       "MODEL.PJS.C_DEPTH", "2"]
+
+
+def _train(data, out, epochs, extra=()):
+    from vit_ed_tpu_torch.hisfrag import main
+
+    return main(["--cfg", CFG, "--data-path", data, "--mode", "train",
+                 "--output", out, "--tag", "train", "--device", "cpu",
+                 "--disable_amp", "--batch-size", "6", *extra,
+                 "--opts", *TRAIN_OPTS, "TRAIN.EPOCHS", str(epochs)])
+
+
+def test_train_mode_runs_saves_and_resumes(corpus):
+    """Two epochs on the CPU with DROP_PATH_RATE 0.1: the step counter
+    advances, checkpoint and best-model files appear; a second invocation
+    resumes at the next epoch with the saved optimizer state; ``--mode
+    eval`` scores the val split."""
+    from vit_ed_tpu_torch.hisfrag import main
+    from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
+
+    tmp, data, _pth = corpus
+    # 10 writers: 9 train (93%), 1 held out for val; 36 train fragments x 3
+    # repeats / batch 6 = 18 updates per epoch
+    _write_corpus(data, n_writers=10, sub="train")
+    out = str(tmp / "out_train")
+
+    trainer = _train(data, out, epochs=2)
+    assert trainer.step == 36 and trainer.start_epoch == 0
+    assert trainer.model.blocks[0].drop_path1.rate == 0.0
+    assert trainer.model.cross_blocks[1].drop_path1.rate == pytest.approx(0.1)
+    run_dir = trainer.config.OUTPUT
+    for name in ("checkpoint.ckpt", "best_model.ckpt", "config.yaml"):
+        assert os.path.isfile(os.path.join(run_dir, name)), name
+    tree = load_checkpoint(os.path.join(run_dir, "checkpoint.ckpt"))
+    assert tree["step"] == 36 and tree["epoch"] == 1
+    assert tree["optimizer"]["state"][0]["step"] == 36
+    before = {k: v.clone() for k, v in tree["model"].items()}
+    init = _fresh_state_dict(trainer)
+    assert any(not torch.equal(before[k], init[k]) for k in before)
+
+    # auto-resume: newest checkpoint of the run directory, next epoch
+    resumed = _train(data, out, epochs=3)
+    assert resumed.start_epoch == 2 and resumed.step == 54
+    state = resumed.optimizer.state_dict()["state"]
+    assert all(int(s["step"]) == 54 for s in state.values())
+    after = resumed.model.state_dict()
+    assert any(not torch.equal(before[k], after[k]) for k in before)
+
+    # gradient accumulation and block recomputation through the CLI
+    acc = _train(data, str(tmp / "out_acc"), epochs=1,
+                 extra=("--accumulation-steps", "2", "--use-checkpoint"))
+    assert acc.step == 9 and acc.model.use_checkpoint
+
+    loss = main(["--cfg", CFG, "--data-path", data, "--mode", "eval",
+                 "--output", out, "--tag", "train", "--device", "cpu",
+                 "--disable_amp", "--batch-size", "6", "--opts", *TRAIN_OPTS])
+    assert 0.0 <= loss <= 1.0
+    log = Path(run_dir, "log_rank0eval.txt").read_text()
+    assert "mAP" in log and "Pr@k100" in log
+
+
+def _fresh_state_dict(trainer):
+    """The state dict a fresh model of the trainer's config starts from."""
+    from vit_ed_tpu_torch.models.build import build_model
+
+    torch.manual_seed(trainer.config.SEED)
+    return build_model(trainer.config, torch.device("cpu")).state_dict()
+
+
+def test_train_mode_raises_without_a_card(monkeypatch, corpus):
+    from vit_ed_tpu_torch.hisfrag import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _tmp, data, _pth = corpus
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--cfg", CFG, "--data-path", data, "--mode", "train"])
+
+
+def test_logger_writes_each_line_once(tmp_path, capsys):
+    """Two trainers of one model name in one process (another tag, another
+    output directory) share a logger name: the second replaces the first's
+    handlers instead of adding to them."""
+    from vit_ed_tpu_torch.utils import create_logger
+
+    create_logger(str(tmp_path / "a"), name="same_name").info("first")
+    logger = create_logger(str(tmp_path / "b"), name="same_name")
+    assert len(logger.handlers) == 2          # console + file
+    logger.info("second")
+    assert capsys.readouterr().out.count("second") == 1
+    assert "second" not in (tmp_path / "a" / "log_rank0.txt").read_text()
+    assert (tmp_path / "b" / "log_rank0.txt").read_text().count("second") == 1

@@ -1,5 +1,6 @@
-"""HisFrag20 eval dataset (the port's copy of the eval half of
-``vit_ed_tpu/data/hisfrag.py``).
+"""HisFrag20 datasets (the port's copy of ``vit_ed_tpu/data/hisfrag.py``):
+``HisFrag20`` for training (augmented image, writer index) and
+``HisFrag20Test`` for the val and test scans.
 
 Files are named ``writer_page_fragment.jpg``. Writers are carved into
 splits by sorted order (93% train / 7% val inside ``train/``, all of
@@ -37,6 +38,10 @@ class Split(Enum):
         # val images live inside the train directory (held-out writers)
         return "test" if self is Split.TEST else "train"
 
+    @staticmethod
+    def from_string(name: str) -> "Split":
+        return Split(name)
+
 
 @dataclass(frozen=True, order=True)
 class Fragment:
@@ -72,6 +77,39 @@ def _split_proportion(split: Split) -> Tuple[float, float]:
     if split is Split.VAL:
         return (1.0 - split.length, 1.0)
     return (0.0, split.length)
+
+
+class HisFrag20:
+    """Train-time dataset of a split's writers: items are ``(augmented
+    image, writer index)``; ``data_labels`` lists every item's writer
+    index (the M-per-class sampler reads it)."""
+
+    Split = Split
+
+    def __init__(self, root: str, split: Split,
+                 transform: Optional[Callable] = None):
+        self.split = split
+        self.transform = transform
+        self.root_dir = os.path.join(root, split.sub_dir)
+
+        table = _fragment_table(self.root_dir)
+        self.writers = _writer_window(table, _split_proportion(split))
+        rank = {w: i for i, w in enumerate(self.writers)}
+        mine = [f for f in table if f.writer in rank]
+
+        self.samples = [f.path for f in mine]
+        self.data_labels = [rank[f.writer] for f in mine]
+        self.writer_to_idx = rank
+
+    def __getitem__(self, index: int):
+        image = open_rgb(self.samples[index])
+        if self.transform is not None:
+            image = self.transform(image)
+        return (as_sample_array(image),
+                np.asarray(self.data_labels[index], np.int32))
+
+    def __len__(self) -> int:
+        return len(self.samples)
 
 
 def _eval_samples(root_dir: str, split: Split,

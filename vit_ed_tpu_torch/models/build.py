@@ -1,7 +1,7 @@
 """Model factory keyed on MODEL.TYPE (``vit_ed_tpu/models/build.py``).
 
-Slice 1 builds the pjs ViT-ED for the scoring path. Other model types and
-the options this slice leaves out raise NotImplementedError naming the
+Builds the pjs ViT-ED for the scoring and the training path. Other model
+types and the options not ported yet raise NotImplementedError naming the
 ROADMAP item that ports them.
 """
 
@@ -42,7 +42,7 @@ def build_model(config, device=None) -> ViTED:
     if config.MODEL.TYPE != "pjs":
         raise NotImplementedError(
             f"MODEL.TYPE {config.MODEL.TYPE!r} is not ported yet "
-            f"(ROADMAP queue A item 8); slice 1 builds 'pjs'")
+            f"(ROADMAP queue A item 8); only 'pjs' is")
     unported = _unported(config)
     if unported:
         name, item = unported[0]
@@ -63,5 +63,8 @@ def build_model(config, device=None) -> ViTED:
         drop_path_rate=config.MODEL.DROP_PATH_RATE,
         cls_shortcut=config.TPU.CLS_SHORTCUT,
         dtype=compute_dtype(config),
+        use_checkpoint=config.TRAIN.USE_CHECKPOINT,
+        # the JAX factory feeds MODEL.DROP_RATE to the head dropout only
+        drop_rate=config.MODEL.DROP_RATE,
     )
     return model.to(device) if device is not None else model

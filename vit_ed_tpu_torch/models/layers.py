@@ -66,19 +66,33 @@ class LayerNorm(nn.LayerNorm):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth; the scoring path runs in eval, where it is the
-    identity. Training (per-sample masks) comes with the training slice."""
+    """Per-sample stochastic depth (timm DropPath semantics): in training
+    mode one Bernoulli(1 - rate) draw per sample, ``x / keep`` where kept
+    and zero elsewhere; the identity in eval mode or at rate 0.
+
+    The draws come from ``generator``, an explicit ``torch.Generator`` on
+    the activations' device that the model owns and the trainer seeds
+    (``ViTED.seed_drop_path``); the global RNG is never touched."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "stochastic depth in training mode comes with the training "
-                "slice (ROADMAP queue A item 6)")
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "DropPath in training mode needs a seeded generator: call "
+                "ViTED.seed_drop_path(seed) after moving the model to its "
+                "device")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.bernoulli(
+            torch.full(shape, keep, dtype=torch.float32, device=x.device),
+            generator=self.generator)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
 class PatchEmbed(nn.Module):
@@ -97,7 +111,8 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (timm Mlp; dropout is eval-identity)."""
+    """fc1 -> exact GELU -> fc2 (timm Mlp; its dropouts are 0 in every
+    config of the repo and are not ported, see ViTED)."""
 
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()

@@ -13,8 +13,17 @@ decomposition ``prepare_x2_scan`` + ``context_kv_cache`` +
 before the patch embedding and every activation stays in it; the
 parameters stay float32 and are cast at use, as flax does.
 
-Scoring methods are inference-only: call them under ``torch.no_grad()`` or
-``torch.inference_mode()`` (the CUDA attention kernel has no backward).
+Every method is differentiable except the shared-row scan op
+``score_tokens_row`` (its kernel launch is eval-only, as in the JAX
+package). The attention calls dispatch by device, forward and backward
+alike (ops/attention.py): CPU tensors run the plain versions, CUDA tensors
+launch the kernels or raise. In training mode stochastic depth draws from
+``drop_path_generator`` (seed it with ``seed_drop_path``), and with
+``use_checkpoint`` every block is recomputed in the backward pass
+(``TRAIN.USE_CHECKPOINT``, flax ``remat`` in the JAX package) with the
+generator rewound so that the recomputed masks are the same. The other
+dropouts are 0 in every config of the repo; they are taken as arguments
+and training with a non-zero one raises (ROADMAP).
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vit_ed_tpu_torch.models.layers import (
     Block,
     CrossBlock,
+    DropPath,
     LayerNorm,
     Linear,
     PatchEmbed,
@@ -42,7 +53,10 @@ class ViTED(nn.Module):
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, init_values: Optional[float] = None,
                  drop_path_rate: float = 0.0, cls_shortcut: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_checkpoint: bool = False, drop_rate: float = 0.0,
+                 pos_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0):
         super().__init__()
         self.img_size = img_size
         self.patch_size = patch_size
@@ -54,6 +68,11 @@ class ViTED(nn.Module):
         # full last block, as the JAX TPU.CLS_SHORTCUT switch does)
         self.cls_shortcut = cls_shortcut
         self.dtype = dtype
+        self.use_checkpoint = use_checkpoint
+        self.dropouts = {"drop_rate": drop_rate, "pos_drop_rate": pos_drop_rate,
+                         "proj_drop_rate": proj_drop_rate,
+                         "attn_drop_rate": attn_drop_rate}
+        self.drop_path_generator: Optional[torch.Generator] = None
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
         self.cls_token = nn.Parameter(torch.randn(1, 1, embed_dim) * 1e-6)
@@ -76,10 +95,56 @@ class ViTED(nn.Module):
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
 
+    # ---------------------------------------------------------------- training
+    def seed_drop_path(self, seed: int) -> torch.Generator:
+        """Create the stochastic-depth generator on the model's device,
+        seed it and hand it to every DropPath; returns it (its state goes
+        into checkpoints)."""
+        gen = torch.Generator(device=self.pos_embed.device)
+        gen.manual_seed(seed)
+        self.drop_path_generator = gen
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = gen
+        return gen
+
+    def _run(self, fn, *args: torch.Tensor) -> torch.Tensor:
+        """``fn(*args)``, recomputed in the backward pass when
+        ``use_checkpoint`` is set and a graph is being recorded. The
+        recomputation rewinds the DropPath generator to where the first
+        run found it (and puts it back after), so both runs draw the same
+        masks."""
+        if not (self.use_checkpoint and self.training
+                and torch.is_grad_enabled()):
+            return fn(*args)
+        gen = self.drop_path_generator
+        before = None if gen is None else gen.get_state()
+        first = [True]
+
+        def run(*a):
+            if first[0] or gen is None:
+                first[0] = False
+                return fn(*a)
+            after = gen.get_state()
+            gen.set_state(before)
+            try:
+                return fn(*a)
+            finally:
+                gen.set_state(after)
+
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def _embed(self, x: torch.Tensor) -> torch.Tensor:
         """uint8 images normalize on the device with the canonical
         (x/255 - 0.5)/0.5 in float32, before the cast to the compute
         dtype (as ViTED._embed of the JAX package)."""
+        if self.training and any(self.dropouts.values()):
+            on = sorted(k for k, v in self.dropouts.items() if v)
+            raise NotImplementedError(
+                f"training with non-zero {on} is not ported yet (ROADMAP: "
+                f"what the training slice left out); every config of the repo keeps "
+                f"them at 0")
         if x.dtype == torch.uint8:
             x = (x.float() / 255.0 - 0.5) / 0.5
         return self.patch_embed(x.to(self.dtype))
@@ -90,7 +155,7 @@ class ViTED(nn.Module):
         x = self._embed(x1)
         x = x + self.pos_embed[:, 1:].to(x.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = self._run(blk, x)
         return x
 
     # ---------------------------------------------------------------- stream 2
@@ -104,15 +169,16 @@ class ViTED(nn.Module):
     def cross_part(self, x1_feats: torch.Tensor, x2_tokens: torch.Tensor) -> torch.Tensor:
         """Decoder cross blocks + final norm."""
         for blk in self.cross_blocks:
-            x2_tokens = blk(x2_tokens, x1_feats)
+            x2_tokens = self._run(blk, x2_tokens, x1_feats)
         return self.norm(x2_tokens)
 
     def cross_part_cls(self, x1_feats: torch.Tensor, x2_tokens: torch.Tensor) -> torch.Tensor:
         """``cross_part`` computing only the CLS row of the LAST block,
         [B, 1, C] — the head's sole input."""
         for blk in self.cross_blocks[:-1]:
-            x2_tokens = blk(x2_tokens, x1_feats)
-        return self.norm(self.cross_blocks[-1].cls_call(x2_tokens, x1_feats))
+            x2_tokens = self._run(blk, x2_tokens, x1_feats)
+        return self.norm(self._run(self.cross_blocks[-1].cls_call, x2_tokens,
+                                   x1_feats))
 
     def _head_scores(self, x1_feats: torch.Tensor, x2_tokens: torch.Tensor) -> torch.Tensor:
         part = self.cross_part_cls if self.cls_shortcut else self.cross_part

@@ -14,8 +14,18 @@ elementwise ops compute in f32 and round each result to bf16, which is the
 chain's own rounding; the constant is made a bf16 tensor so that it is
 rounded like the JAX one. In float32 the same expression is the exact GELU.
 
-Forward only: the closed-form derivative of ``vit_ed_tpu/ops/gelu.py``
-(gelu'(x) = Phi(x) + x * phi(x)) comes with the training slice.
+Backward, as ``vit_ed_tpu/ops/gelu.py::_gelu_bf16_jvp``: on bf16 the
+derivative is the closed form
+
+    gelu'(x) = Phi(x) + x * phi(x),   Phi(x) = 0.5 * erfc(-x * sqrt(0.5))
+
+evaluated in float32, and the cotangent ``g * gelu'(x)`` rounds once to
+bf16. Only ``x`` is saved: autograd through the five-op chain would keep
+four hidden-width tensors per MLP. The JAX package evaluates Phi with its
+polynomial erfc and the density with exp2, the port with
+``torch.special.erfc`` and ``exp`` in f32; gradients carry no bit contract
+(tests/test_torch_gelu.py states the measured difference). float32 inputs
+keep plain autograd of the exact GELU, as ``jax.nn.gelu`` does.
 """
 
 from __future__ import annotations
@@ -25,8 +35,33 @@ import math
 import torch
 
 _SQRT_HALF = math.sqrt(0.5)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
+    sqrt_half = torch.tensor(_SQRT_HALF, dtype=x.dtype, device=x.device)
+    return (0.5 * x) * torch.special.erfc(-x * sqrt_half)
+
+
+class _GeluBf16(torch.autograd.Function):
+    """The bf16 chain with the closed-form derivative."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_chain(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        big_phi = 0.5 * torch.special.erfc(xf * -_SQRT_HALF)
+        dens = torch.exp(xf * xf * -0.5) * _INV_SQRT_2PI
+        return (g.float() * (big_phi + xf * dens)).to(x.dtype)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    sqrt_half = torch.tensor(_SQRT_HALF, dtype=x.dtype, device=x.device)
-    return (0.5 * x) * torch.special.erfc(-x * sqrt_half)
+    if (x.dtype == torch.bfloat16 and x.requires_grad
+            and torch.is_grad_enabled()):
+        return _GeluBf16.apply(x)
+    return _gelu_chain(x)

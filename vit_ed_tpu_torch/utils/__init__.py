@@ -1,4 +1,5 @@
 from .logger import create_logger
-from .misc import chunks, list_to_idx
+from .misc import AverageMeter, chunks, list_to_idx, set_seed
 
-__all__ = ["chunks", "create_logger", "list_to_idx"]
+__all__ = ["AverageMeter", "chunks", "create_logger", "list_to_idx",
+           "set_seed"]

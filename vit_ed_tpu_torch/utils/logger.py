@@ -1,10 +1,12 @@
 """Per-process logger (reference misc/logger.py:15-41 semantics).
 
 Rank 0 logs to the console in color (if a tty); every process appends to
-``log_rank{r}{affix}.txt`` in the output directory.
+``log_rank{r}{affix}.txt`` in the output directory. A logger is keyed by
+its name: creating it again (another trainer of the same model name in one
+process, another output directory) replaces its handlers, so a line is
+never written twice.
 """
 
-import functools
 import logging
 import os
 import sys
@@ -12,11 +14,13 @@ import sys
 _COLORS = {"green": "\033[32m", "yellow": "\033[33m", "reset": "\033[0m"}
 
 
-@functools.lru_cache()
 def create_logger(output_dir, dist_rank=0, name="", affix=""):
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
 
     fmt = "[%(asctime)s %(name)s] (%(filename)s %(lineno)d): %(levelname)s %(message)s"
     color_fmt = (

@@ -1,9 +1,41 @@
-"""Small host-side helpers (the port's copy of the eval-path pieces of
-vit_ed_tpu/utils/misc.py)."""
+"""Small host-side helpers (the port's copy of the pieces of
+vit_ed_tpu/utils/misc.py that the scoring and training paths use)."""
 
 from __future__ import annotations
 
+import random
 from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+
+class AverageMeter:
+    """Running average meter (reference misc/utils.py:276-303)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        val = float(val)
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
+def set_seed(seed: int) -> None:
+    """Seed the host RNGs the data path draws from (``np.random`` for pair
+    mining, ``random`` for the augmentations) and torch's global one."""
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def list_to_idx(items: Sequence, name_converting_fn: Callable) -> List[int]:
