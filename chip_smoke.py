@@ -38,7 +38,29 @@ from the JAX package. Phases, each printing its own lines:
    --mode train`` (in process, bf16, DROP_PATH_RATE 0.1, 16 images -> 49
    pairs per step, one epoch, validate before and after) on a synthetic
    corpus, launch counts reset before and read after; then the checkpoint
-   is reloaded and one step is broken down with torch.profiler.
+   is reloaded and one step is broken down with torch.profiler;
+10. the 4-D kernels against plain: forward and dq / dk / dv through every
+    route (``fused_attention``, ``fused_attention_heads``,
+    ``fused_attention_flat`` and the five packed wrappers) at 12 heads of
+    head_dim 32, at the shapes the puzzle path launches them (B=128: the
+    decoder's S=65 with Sk 65 and 64 and CLS Sq=1 in both attentions, the
+    encoder's S=64) and
+    at B=8, S=1025 (Sk 1025 and 1024), and head_dim 16, 64, 128 at one
+    shape; bit-equal reruns; CLS == row 0 and shared kv == broadcast exactly;
+11. 4-D kernel times (forward, dq, dkv) at the puzzle path's shapes (B=128,
+    12 heads, head_dim 32, bf16: S=65, the encoder's S=64, Sq=1), at B=64,
+    S=1025 and at the head_dim 32 scan's chunk (shared kv, B=16, S=1025),
+    beside the plain versions, SDPA forward / backward and the card's bounds;
+12. the full-width, full-depth pjs patch8_64 model (12 heads of 32, 8 + 8
+    blocks) from a seed: f32 card against f32 CPU, bf16 against f32, and
+    one f32 loss + backward of the DIV2K trainer, card against CPU;
+13. the DIV2K main path end to end: ``python -m vit_ed_tpu_torch.main
+    --mode train`` (in process, bf16, 128 pairs per step, one epoch with
+    both validates) on a synthetic DIV2K made from a seed, launch counts (by
+    wrapper and by shape) reset before and read after; then ``--mode eval``
+    and ``--mode throughput``, each with counts of its own; then the O(N^2)
+    scan at head_dim 32 (``vit_ed_tpu_torch.hisfrag --mode test`` with 12
+    heads).
 
 Any failure raises (exit code != 0). The second-to-last lines are the
 card (``nvidia-smi`` name, power limit) and one JSON object with the
@@ -51,6 +73,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -72,7 +95,6 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SOURCE = "vit_ed_tpu_torch/csrc/pair_attention.cu"
-BWD_SOURCE = "vit_ed_tpu_torch/csrc/pair_attention_bwd.cu"
 BWD_REPLACES = "vit_ed_tpu/ops/attention.py:613"   # _pair_backward
 # wrapper -> the JAX function that reaches pl.pallas_call for it
 REPLACES = {
@@ -84,17 +106,46 @@ REPLACES = {
 }
 MAIN_PATH = ("qkv", "kv_shared", "qkv_cls")        # the scan (phase 5)
 TRAIN_PATH_FWD = ("qkv", "qkv_cls", "kv")            # training (phase 9)
-TRAIN_PATH_BWD = ("qkv_bwd", "qkv_cls_bwd", "kv_bwd")
+TRAIN_PATH_BWD = tuple(f"{name}_{kernel}" for name in ("qkv", "qkv_cls", "kv")
+                       for kernel in ("dq", "dkv"))
 # launches of one optimizer step at depth 12 + 12 with the CLS short-circuit:
 # 12 encoder self-attentions, 11 + 1 (CLS) decoder self-attentions and 12
-# per-pair cross-attentions, each once forward and once backward
-STEP_LAUNCHES = {"qkv": 23, "qkv_cls": 1, "kv": 12,
-                 "qkv_bwd": 23, "qkv_cls_bwd": 1, "kv_bwd": 12}
+# per-pair cross-attentions, each one forward, one dq and one dkv launch
+STEP_LAUNCHES = {f"{name}{kernel}": n
+                 for name, n in (("qkv", 23), ("qkv_cls", 1), ("kv", 12))
+                 for kernel in ("", "_dq", "_dkv")}
 TRAIN_BATCH, TRAIN_PAIRS = 16, 49
 # launches of one score_tokens_row chunk with 12 decoder blocks: self-attn
 # in blocks 1..10 (block 0's is hoisted, block 11's is CLS-only), one
 # shared-kv cross-attention per block; phase 4 measures and checks it
 CHUNK_LAUNCHES = {"qkv": 10, "kv_shared": 12, "qkv_cls": 1, "kv": 0, "packed": 0}
+
+# the 4-D route: pjs patch8_64 has 12 heads of head_dim 32
+PUZZLE_CFG = os.path.join(ROOT, "configs", "puzzle", "div2k_erosion7_4bin_patch8_64.yaml")
+HH, HD = 12, 32
+HEADS_SOURCE = "vit_ed_tpu_torch/csrc/heads_attention.cu"
+HEADS_BWD_SOURCE = "vit_ed_tpu_torch/csrc/heads_attention_bwd.cu"
+HEADS_REPLACES = {"forward": "vit_ed_tpu/ops/attention.py:245",   # _pallas_fwd_heads
+                  "flat": "vit_ed_tpu/ops/attention.py:294",      # _pallas_fwd
+                  "dq": "vit_ed_tpu/ops/attention.py:318",        # _pallas_dq
+                  "dkv": "vit_ed_tpu/ops/attention.py:338"}       # _pallas_dkv
+PUZZLE_PATH = ("qkv", "qkv_cls", "kv")     # the layouts a puzzle train step runs
+PUZZLE_BATCH = 128
+SCAN32_IMAGES = 16      # N of the head_dim 32 scan: its chunks hold <= N pairs
+# launches of one optimizer step at depth 8 + 8 with the CLS short-circuit:
+# 8 encoder self-attentions, 7 + 1 (CLS) decoder self-attentions and 8
+# cross-attentions, each one forward, one dq and one dkv launch
+PUZZLE_STEP_LAUNCHES = {f"heads_{name}{kernel}": n
+                        for name, n in (("qkv", 15), ("qkv_cls", 1), ("kv", 8))
+                        for kernel in ("", "_dq", "_dkv")}
+# the same by shape, (counter, Sq, Sk) -> launches per step at B = PUZZLE_BATCH:
+# the encoder adds no CLS token, so its 8 self-attentions run at S = 64; the
+# last decoder block computes its CLS row only, in both attentions
+PUZZLE_STEP_SHAPES = {(f"heads_{name}{kernel}", n_q, n_k): n
+                      for name, n_q, n_k, n in (("qkv", 64, 64, 8), ("qkv", 65, 65, 7),
+                                                ("qkv_cls", 1, 65, 1), ("kv", 65, 64, 7),
+                                                ("kv", 1, 64, 1))
+                      for kernel in ("", "_dq", "_dkv")}
 
 
 def card_line():
@@ -188,15 +239,32 @@ def phase_kernels_vs_plain(gen):
     return err
 
 
+_HOLD = []
+
+
+def hold_device():
+    """Keep the card busy for ~3 ms (three 8192^3 bf16 products) so that the
+    calls timed next are all enqueued before the first of them starts: the
+    events then bracket the device's time, not the host's time to issue
+    small launches. It also leaves the L2 cache cold, as a caller inside a
+    model finds it."""
+    if not _HOLD:
+        _HOLD.append(torch.zeros(8192, 8192, device="cuda", dtype=torch.bfloat16))
+    for _ in range(3):
+        torch.mm(_HOLD[0], _HOLD[0])
+
+
 def timed(fn, n=20, inner=5, warmup=3):
-    """Median milliseconds per call of ``fn``: n timed runs (CUDA events)
-    of ``inner`` back-to-back calls each, after a warm-up."""
+    """Median device milliseconds per call of ``fn``: n timed runs (CUDA
+    events) of ``inner`` back-to-back calls each, enqueued behind
+    ``hold_device``, after a warm-up."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        hold_device()
         a.record()
         for _ in range(inner):
             fn()
@@ -304,6 +372,19 @@ def phase_model(gen):
     return per_chunk
 
 
+def device_rows(prof, runs):
+    """(name, ms per run, launches per run) of every kernel and copy the
+    profiler saw on the card, largest first. Kernel events only: aten ops
+    carry their kernels' time again, and so do the device-side spans of
+    user annotations (``Optimizer.step#AdamW.step``)."""
+    rows = [(e.key, e.self_device_time_total / (runs * 1e3), e.count // runs)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def chunk_breakdown(model, kv_row, adv):
     """Where the time of one 64-pair score_tokens_row chunk goes: its wall
     time (CUDA events) and torch.profiler's device time by kernel."""
@@ -315,12 +396,7 @@ def chunk_breakdown(model, kv_row, adv):
             for _ in range(3):
                 model.score_tokens_row(kv_row, adv)
             torch.cuda.synchronize()
-    # kernel events only (aten ops carry their kernels' time again)
-    rows = [(e.key, e.self_device_time_total / 3e3, e.count // 3)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, 3)
     busy = sum(r[1] for r in rows)
     print(f"  one 64-pair chunk: {ms:.2f} ms wall (CUDA events); profiler "
           f"device time {busy:.2f} ms/chunk" + ("" if rows else " (not measured:"
@@ -345,6 +421,27 @@ def write_corpus(root, writers=16, pages=2, frags=2, seed=0, sub="test"):
                 Image.fromarray(arr.astype(np.uint8)).save(
                     os.path.join(d, f"w{w:03d}_{p}_{f}.jpg"), quality=90)
     return writers * pages * frags
+
+
+def scan_vs_direct(data, dm, pairs, opts=None):
+    """The scan's scores (1 - distance) against direct pair forwards of the
+    same seeded model at ``pairs`` of the test split."""
+    config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=opts))
+    torch.manual_seed(config.SEED)
+    model = build_model(config, torch.device("cuda")).eval()
+    ds = HisFrag20Test(data, Split.TEST, transform=OneImgEval(512, crop=True))
+    x = torch.from_numpy(np.stack([np.stack([ds[i][0], ds[j][0]])
+                                   for i, j in pairs])).cuda()
+    with torch.inference_mode():
+        direct = model(x).float().cpu().numpy()[:, 0]
+    scan = np.asarray([1.0 - float(dm[i, j]) for i, j in pairs])
+    gap = float(np.abs(direct - scan).max())
+    # bf16 logits of two schedules (different GEMM batch shapes), then the
+    # float16 score and distance roundings of the scan
+    print(f"  scan vs direct pair forward at {pairs}: max gap {gap:.3e} "
+          f"(tol 1e-2)", flush=True)
+    if gap > 1e-2:
+        raise AssertionError("scan scores differ from direct forwards")
 
 
 def phase_main_path(tmp):
@@ -381,30 +478,9 @@ def phase_main_path(tmp):
         if counts[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 
-    # the scan's scores against direct pair forwards of the same model
-    class Args:
-        cfg = FLAGSHIP_CFG
-        opts = None
-
-    config = get_config(Args())
-    torch.manual_seed(config.SEED)
-    model = build_model(config, torch.device("cuda")).eval()
-    ds = HisFrag20Test(data, Split.TEST, transform=OneImgEval(512, crop=True))
     # upper triangle only: the lower one mirrors (j, i), and the model is
     # not symmetric in its two images
-    pairs = [(0, 0), (0, 5), (3, 17), (9, 20), (40, 63)]
-    x = torch.from_numpy(np.stack([np.stack([ds[i][0], ds[j][0]])
-                                   for i, j in pairs])).cuda()
-    with torch.inference_mode():
-        direct = model(x).float().cpu().numpy()[:, 0]
-    scan = np.asarray([1.0 - float(dm[i, j]) for i, j in pairs])
-    gap = float(np.abs(direct - scan).max())
-    # bf16 logits of two schedules (different GEMM batch shapes), then the
-    # float16 score and distance roundings of the scan
-    print(f"  scan vs direct pair forward at {pairs}: max gap {gap:.3e} "
-          f"(tol 1e-2)", flush=True)
-    if gap > 1e-2:
-        raise AssertionError("scan scores differ from direct forwards")
+    scan_vs_direct(data, dm, [(0, 0), (0, 5), (3, 17), (9, 20), (40, 63)])
     return counts
 
 
@@ -522,10 +598,28 @@ def phase_backward_times(gen):
                  lib_out, (q, k, v), lib_do, retain_graph=True))}
         r["bound_ms"], r["bound_by"] = bwd_bound(name, b, s, kv_len)
         res[name + "_bwd"] = r
-        print(f"  {name + '_bwd':12s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
-              f"  sdpa backward {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it); "
-              f"{STEP_LAUNCHES.get(name + '_bwd', 0)} launches per train step", flush=True)
+        line = (f"  {name + '_bwd':12s} dq + dkv {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
+                f"ms  sdpa backward {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+        # each of the two kernels alone, on the views the wrapper hands them
+        tensors = [t[n] for n in names]
+        qv, kv_, vv = A._heads_views(name, tensors, H)
+        dq, dk, dv = A._heads_views(name, [torch.empty_like(x) for x in tensors], H)
+        doh = A._to_heads(name, do, H)
+        stats = A._launch_heads_dq(name, qv, kv_, vv, doh, dq, D ** -0.5, "")
+        for kind, fn in (
+                ("dq", lambda: A._launch_heads_dq(name, qv, kv_, vv, doh, dq, D ** -0.5, "")),
+                ("dkv", lambda: A._launch_heads_dkv(name, qv, kv_, vv, doh, dk, dv, stats,
+                                                    D ** -0.5, ""))):
+            rk = {"ms": timed(fn), "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                  "library": "sdpa backward: dq, dk and dv together",
+                  "plain": "pair_attention_backward_plain: dq, dk and dv together",
+                  "shape": f"B={b} H={H} Sq={qv.shape[2]} Sk={kv_len} d={D} bf16"}
+            rk["bound_ms"], rk["bound_by"] = heads_bound(kind, b, qv.shape[2], kv_len, h=H, d=D)
+            res[f"{name}_{kind}"] = rk
+            line += f"; {kind} {rk['ms']:.4f} ms (bound {rk['bound_ms']:.4f} {rk['bound_by']})"
+        print(line + f"; {STEP_LAUNCHES.get(name + '_dq', 0)} backwards per train step",
+              flush=True)
         del out, lib_out, q, k, v
     # the encoder's backward runs at the image batch, not the pair batch
     te = vjp_inputs(gen, torch.bfloat16, TRAIN_BATCH, 1024, 1024)
@@ -691,18 +785,19 @@ def phase_train_path(tmp):
     return counts
 
 
-def host_input_cost(trainer):
-    """Host seconds to decode and augment one training image, one thread,
-    nothing else running: what the loader's threads spend per batch while
-    the step's Python thread competes with them for the interpreter."""
+def host_input_cost(trainer, what="JPEG decode + train augmentation"):
+    """Host seconds to make one training item, one thread, nothing else
+    running: what the loader's threads spend per batch while the step's
+    Python thread competes with them for the interpreter."""
     ds = trainer.get_dataloader("train").dataset
+    batch = trainer.config.DATA.BATCH_SIZE
+    n = min(16, len(ds))
     t0 = time.time()
-    for i in range(8):
+    for i in range(n):
         ds[i]
-    per = (time.time() - t0) / 8
-    print(f"  host input: {per * 1e3:.0f} ms per image (JPEG decode + train "
-          f"augmentation, numpy/PIL, one thread) = {per * TRAIN_BATCH:.2f} s of "
-          f"host work per {TRAIN_BATCH}-image batch over "
+    per = (time.time() - t0) / n
+    print(f"  host input: {per * 1e3:.1f} ms per item ({what}, numpy/PIL, one "
+          f"thread) = {per * batch:.2f} s of host work per {batch}-item batch over "
           f"{trainer.config.DATA.NUM_WORKERS} loader threads", flush=True)
 
 
@@ -741,17 +836,464 @@ def step_breakdown(trainer):
             trainer.train_step([host])
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3 / 2
-    rows = [(e.key, e.self_device_time_total / 2e3, e.count // 2)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, 2)
     busy = sum(r[1] for r in rows)
     print(f"  profiler: device time {busy:.1f} ms/step of {wall:.1f} ms wall under "
           f"the profiler ({len(rows)} kernels, {sum(r[2] for r in rows)} launches/step)"
           + ("" if rows else " (not measured: the profiler saw no device time)"))
     for key, t, cnt in rows[:14]:
         print(f"    {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}%  x{cnt:<4d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# the 4-D kernels (head_dim != 64) and the DIV2K puzzle-pair path
+# ---------------------------------------------------------------------------
+
+# layout -> (wrapper, names of its inputs); the first five take num_heads
+HEADS_WRAPPERS = {
+    "qkv": (A.fused_attention_packed_qkv, ("qkv",)),
+    "qkv_cls": (A.fused_attention_packed_qkv_cls, ("qkv",)),
+    "kv": (A.fused_attention_packed_kv, ("q", "kv")),
+    "kv_shared": (A.fused_attention_packed_kv_shared, ("q", "kv1")),
+    "packed": (A.fused_attention_packed, ("q", "k", "v")),
+    "bhsd": (A.fused_attention, ("q4", "k4", "v4")),
+    "bhsd_eval": (A.fused_attention_heads, ("q4", "k4", "v4")),
+    "flat": (A.fused_attention_flat, ("q3", "k3", "v3")),
+}
+
+
+def heads_inputs(gen, dtype, b, s, sk, h=HH, d=HD):
+    c = h * d
+    shapes = {"qkv": (b, s, 3 * c), "q": (b, s, c), "kv": (b, sk, 2 * c),
+              "kv1": (1, sk, 2 * c), "k": (b, sk, c), "v": (b, sk, c),
+              "q4": (b, h, s, d), "k4": (b, h, sk, d), "v4": (b, h, sk, d),
+              "q3": (b * h, s, d), "k3": (b * h, sk, d), "v3": (b * h, sk, d)}
+    return {n: rand(gen, *sh, dtype=dtype) for n, sh in shapes.items()}
+
+
+def heads_call(layout, tensors, h=HH):
+    fn = HEADS_WRAPPERS[layout][0]
+    return fn(*tensors, h) if layout in A.PACKED_LAYOUTS else fn(*tensors)
+
+
+def heads_plain(layout, tensors, h=HH):
+    """The plain forward on the views the wrapper's kernel reads."""
+    q, k, v = A._heads_views(layout, tensors, h)
+    return A._from_heads(layout, A.heads_attention_plain(q, k, v, q.shape[-1] ** -0.5))
+
+
+def heads_plain_grads(layout, tensors, do, h=HH):
+    """``attention_backward_plain`` on the wrapper's q, k, v views, put into
+    the wrapper's gradient layout."""
+    q, k, v = A._heads_views(layout, tensors, h)
+    out = [torch.zeros_like(t) for t in tensors]
+    grads = A.attention_backward_plain(
+        q, k, v, A._to_heads(layout, do.contiguous(), h), q.shape[-1] ** -0.5)
+    for buf, g in zip(A._heads_views(layout, out, h), grads):
+        buf.copy_(g)
+    return out
+
+
+def check_heads_layout(layout, t, dtype, tag, err, h=HH):
+    """One wrapper of the 4-D route against plain on the card: forward, and
+    where it has a VJP the gradients, two runs bit-equal. Returns the
+    forward output."""
+    tensors = [t[n] for n in HEADS_WRAPPERS[layout][1]]
+    with torch.no_grad():
+        out = heads_call(layout, tensors, h)
+        ref = heads_plain(layout, tensors, h)
+    torch.cuda.synchronize()
+    e = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    err[layout] = max(err.get(layout, 0.0), e)
+    line = f"  {layout:10s} {str(dtype)[6:]:8s} {tag} forward max|kernel-plain|={e:.3e}"
+    if layout not in A.EVAL_ONLY_LAYOUTS:
+        args = [x.detach().requires_grad_() for x in tensors]
+        o = heads_call(layout, args, h)
+        do = torch.randn(o.shape, device="cuda").to(dtype)
+        got = torch.autograd.grad(o, args, do, retain_graph=True)
+        again = torch.autograd.grad(o, args, do)
+        want = heads_plain_grads(layout, tensors, do, h)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for g, g2, r in zip(got, again, want):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"heads_{layout} backward: two launches differ")
+            ge = (g.float() - r.float()).abs().max().item()
+            mx = r.float().abs().max().item()
+            worst = max(worst, ge / (mx if dtype == torch.float32 else max(mx, 1.0)))
+            err[layout + "_bwd"] = max(err.get(layout + "_bwd", 0.0), ge)
+        ok = ok and worst <= TOL[dtype] and all(torch.isfinite(g).all() for g in got)
+        if layout == "qkv_cls" and torch.count_nonzero(got[0][:, 1:, :ref.shape[-1]]):
+            raise AssertionError("CLS backward: dq rows past 0 not zero")
+        line += f" backward /max|grad|={worst:.3e} bit-equal twice"
+    print(f"{line} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"heads_{layout} {dtype} {tag}: kernel != plain")
+    return out
+
+
+def phase_heads_vs_plain(gen):
+    print(f"== phase 10: 4-D kernels against plain (H={HH}, d={HD}: forward, dq, "
+          f"dk/dv through every route at the puzzle path's shapes, B={PUZZLE_BATCH}, "
+          f"S=65 and the encoder's S=64, and at B=8, S=1025; then d=16, 64, 128)",
+          flush=True)
+    A.reset_launch_counts()
+    err = {}
+    # the decoder's self-attention (65, 65), its cross-attention (65, 64) and
+    # the encoder's self-attention (64, 64: no CLS token) at the train batch
+    shapes = [(PUZZLE_BATCH, s, sk) for s, sk in ((65, 65), (65, 64), (64, 64))]
+    shapes += [(8, 1025, 1025), (8, 1025, 1024)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, sk in shapes:
+            t = heads_inputs(gen, dtype, b, s, sk)
+            outs = {}
+            for layout in HEADS_WRAPPERS:
+                if layout.startswith("qkv") and s != sk:
+                    continue          # self-attention has Sk == S
+                outs[layout] = check_heads_layout(layout, t, dtype,
+                                                  f"B={b} S={s} Sk={sk}", err)
+            if s != sk:   # the last decoder block's cross-attention: CLS row only
+                check_heads_layout("kv", dict(t, q=t["q"][:, :1].contiguous()), dtype,
+                                   f"B={b} S=1 Sk={sk}", err)
+            bcast = A.fused_attention_packed_kv(
+                t["q"], t["kv1"].expand(b, -1, -1).contiguous(), HH)
+            torch.cuda.synchronize()
+            if not torch.equal(outs["kv_shared"], bcast):
+                raise AssertionError("heads kv_shared != kv on the broadcast")
+            if s == sk and not torch.equal(outs["qkv_cls"], outs["qkv"][:, :1]):
+                raise AssertionError("heads qkv_cls != row 0 of qkv")
+            print(f"  {str(dtype)[6:]} B={b} S={s} Sk={sk}: kv_shared == broadcast kv"
+                  + (" and cls == full row 0" if s == sk else "") + ", bit for bit",
+                  flush=True)
+            del t, outs, bcast
+            torch.cuda.empty_cache()
+        for d in (16, 64, 128):
+            # 3 heads: C = 48 / 192 / 384; d = 64 at C = 192 is the 4-D route
+            t = heads_inputs(gen, dtype, 4, 70, 70, h=3, d=d)
+            for layout in ("bhsd", "qkv", "qkv_cls", "kv"):
+                check_heads_layout(layout, t, dtype, f"d={d} S=70", err, h=3)
+    if any(v for k, v in A.launches.items() if not k.startswith("heads_")):
+        raise AssertionError(f"phase 10 left the 4-D route: {nonzero(A.launches)}")
+    # every shape a puzzle train step launches was held against plain above
+    for name, n_q, n_k in PUZZLE_STEP_SHAPES:
+        if not any(key[0] == name and key[1:] == (PUZZLE_BATCH, HH, n_q, n_k, HD)
+                   for key in A.launches_by_shape):
+            raise AssertionError(f"phase 10 never ran {name} at Sq={n_q} Sk={n_k}")
+    return err
+
+
+def heads_bound(kind, b, sq, sk, h=HH, d=HD, shared=False):
+    """(bound_ms, bound_by) of one 4-D kernel on bf16 inputs: the products the
+    function needs (forward 2, dq 3, dkv 4, each 2*B*H*Sq*Sk*D FLOPs) over
+    the bf16 peak, against q, k, v (and do) read once and the result written
+    once over HBM."""
+    products = {"forward": 2, "dq": 3, "dkv": 4}[kind]
+    flops = 2 * products * b * h * sq * sk * d
+    q_el, kv_el = b * h * sq * d, (1 if shared else b) * h * sk * d
+    el = {"forward": 2 * q_el + 2 * kv_el,          # q, k, v in; out
+          "dq": 3 * q_el + 2 * kv_el,               # q, k, v, do in; dq
+          "dkv": 2 * q_el + 4 * kv_el}[kind]        # q, k, v, do in; dk, dv
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * el / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# phase 11's shapes: (batch, S, Sk of the cross layouts, tag, layouts timed)
+HEADS_TIMED = (
+    (PUZZLE_BATCH, 65, 64, "s65", ("qkv", "qkv_cls", "kv", "kv_shared", "bhsd", "flat")),
+    (PUZZLE_BATCH, 64, 64, "s64", ("qkv",)),           # the encoder: no CLS token
+    (PUZZLE_BATCH, 1, 64, "cls", ("kv",)),             # the last block's cross-attention
+    (64, 1025, 1024, "s1025", ("qkv", "qkv_cls", "kv", "kv_shared", "bhsd", "flat")),
+    (SCAN32_IMAGES, 1025, 1024, "scan", ("kv_shared",)),   # the d=32 scan's chunk
+)
+
+
+def phase_heads_times(gen):
+    print(f"== phase 11: 4-D kernel times (bf16, H=12, d=32): the puzzle path's "
+          f"shapes B={PUZZLE_BATCH} S=65 (decoder), S=64 (encoder) and Sq=1 (the last "
+          f"block's cross-attention), B=64 S=1025, "
+          f"and the head_dim 32 scan's chunk B={SCAN32_IMAGES} S=1025", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for b, s, sk_cross, tag, layouts in HEADS_TIMED:
+        slow = dict(n=5, inner=1) if s > 256 else {}
+        for layout in layouts:
+            sk = s if layout in ("qkv", "qkv_cls") else sk_cross
+            t = heads_inputs(gen, torch.bfloat16, b, s, sk)
+            tensors = [t[n] for n in HEADS_WRAPPERS[layout][1]]
+            q, k, v = A._heads_views(layout, tensors, HH)
+            sq = q.shape[2]
+            shape = f"B={b} H={HH} Sq={sq} Sk={sk} d={HD} bf16"
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            with torch.no_grad():
+                r = {"ms": timed(lambda: heads_call(layout, tensors)),
+                     "plain_ms": timed(lambda: heads_plain(layout, tensors), **slow),
+                     "library_ms": timed(lambda: sdpa(qc, kc, vc)), "shape": shape}
+            r["bound_ms"], r["bound_by"] = heads_bound(
+                "forward", b, sq, sk, shared=layout == "kv_shared")
+            res[f"{layout}@{tag}"] = r
+            line = (f"  B={b} S={s} {layout:10s} forward {r['ms']:.4f} ms (bound "
+                    f"{r['bound_ms']:.4f} {r['bound_by']}, plain {r['plain_ms']:.4f}, "
+                    f"sdpa {r['library_ms']:.4f})")
+            if layout in PUZZLE_PATH:
+                scale = HD ** -0.5
+                do = A._to_heads(layout, rand(gen, b, sq, HH * HD, dtype=torch.bfloat16), HH)
+                grads = [torch.empty_like(x) for x in tensors]
+                dq, dk, dv = A._heads_views(layout, grads, HH)
+                stats = A._launch_heads_dq(layout, q, k, v, do, dq, scale)
+                qg, kg, vg = (x.detach().requires_grad_() for x in (qc, kc, vc))
+                lib_out, lib_do = sdpa(qg, kg, vg), do.contiguous()
+                lib = timed(lambda: torch.autograd.grad(
+                    lib_out, (qg, kg, vg), lib_do, retain_graph=True))
+                plain = timed(lambda: A.attention_backward_plain(q, k, v, do, scale),
+                              **slow)
+                for kind, fn in (
+                        ("dq", lambda: A._launch_heads_dq(layout, q, k, v, do, dq, scale)),
+                        ("dkv", lambda: A._launch_heads_dkv(layout, q, k, v, do, dk, dv,
+                                                            stats, scale))):
+                    rb = {"ms": timed(fn), "plain_ms": plain, "library_ms": lib,
+                          "library": "sdpa backward: dq, dk and dv together",
+                          "plain": "attention_backward_plain: dq, dk and dv together",
+                          "shape": shape}
+                    rb["bound_ms"], rb["bound_by"] = heads_bound(kind, b, sq, sk)
+                    res[f"{layout}_{kind}@{tag}"] = rb
+                    line += (f"; {kind} {rb['ms']:.4f} ms (bound {rb['bound_ms']:.4f} "
+                             f"{rb['bound_by']})")
+                line += f"; plain backward {plain:.4f}, sdpa backward {lib:.4f}"
+                del lib_out, qg, kg, vg
+            print(line, flush=True)
+            del t, tensors, q, k, v, qc, kc, vc
+            torch.cuda.empty_cache()
+    return res
+
+
+def puzzle_argv(data, out, tag, mode, *extra):
+    return ["--cfg", PUZZLE_CFG, "--data-path", data, "--mode", mode,
+            "--output", out, "--tag", tag, *extra]
+
+
+def phase_puzzle_model(tmp):
+    from vit_ed_tpu_torch.main import DefaultTrainer, parse_option
+
+    print("== phase 12: pjs patch8_64 (embed 384, 12 heads x 32, depth 8 + 8, 4 "
+          "classes), full width and depth, seed 0: card against CPU", flush=True)
+    rng = np.random.default_rng(2)
+    samples = rng.normal(size=(16, 2, 64, 64, 3)).astype(np.float32)
+    targets = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 16)][:, :4]
+    logits, grads, losses = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        trainer = DefaultTrainer(parse_option(puzzle_argv(
+            os.path.join(tmp, "none"), os.path.join(tmp, "out"), f"model_{device}",
+            "train", "--device", device, "--disable_amp", "--opts",
+            "MODEL.DROP_PATH_RATE", "0.0", "TRAIN.AUTO_RESUME", "False")))
+        model = trainer.model
+        if device == "cpu":
+            print(f"  {sum(p.numel() for p in model.parameters())} params, depth "
+                  f"{len(model.blocks)}+{len(model.cross_blocks)}, {model.num_heads} "
+                  f"heads of {model.embed_dim // model.num_heads}, "
+                  f"{model.num_patches} patches", flush=True)
+        trainer.setup_training(1)
+        batch = trainer._to_device(trainer.prepare_data(samples, targets))
+        A.reset_launch_counts()
+        with torch.no_grad():
+            logits[device] = model.eval()(batch["samples"]).float().cpu()
+            if device == "cuda":
+                model.dtype = torch.bfloat16
+                logits["bf16"] = model(batch["samples"]).float().cpu()
+                model.dtype = torch.float32
+        model.train()
+        loss = trainer.loss_fn(model, batch)
+        loss.backward()
+        losses[device] = loss.item()
+        grads[device] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        print(f"  {device}: loss {losses[device]:.6f}, {len(grads[device])} gradients; "
+              f"launches {nonzero(A.launches)}", flush=True)
+        del trainer, model
+    torch.cuda.empty_cache()
+    e32 = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    e16 = (logits["bf16"] - logits["cuda"]).abs().max().item()
+    worst, worst_name = 0.0, ""
+    for name, ref in grads["cpu"].items():
+        rel = ((grads["cuda"][name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"  logits f32 max|card-CPU| {e32:.3e} (tol 1e-3), max|bf16-f32| {e16:.3e} "
+          f"(tol 5e-2); loss gap {abs(losses['cuda'] - losses['cpu']):.3e}; worst "
+          f"gradient max|card-CPU|/max|grad| = {worst:.3e} at {worst_name} (tol 1e-3)",
+          flush=True)
+    if not (e32 <= 1e-3 and e16 <= 5e-2 and worst <= 1e-3
+            and abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+            and torch.isfinite(logits["bf16"]).all()):
+        raise AssertionError("full-width puzzle model disagrees with the CPU")
+
+
+def write_div2k(root, n_train=256, n_valid=32, seed=0):
+    """Synthetic DIV2K made from a seed: smooth colour fields of ~220 px as
+    ``DIV2K_train_HR/*.png`` and ``DIV2K_valid_HR/*.png``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub, n in (("DIV2K_train_HR", n_train), ("DIV2K_valid_HR", n_valid)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(n):
+            small = rng.integers(0, 256, size=(28, 30, 3), dtype=np.uint8)
+            Image.fromarray(small).resize((232 + i % 5, 220 + i % 7), Image.BICUBIC
+                                          ).save(os.path.join(root, sub, f"{i:04d}.png"))
+    return n_train, n_valid
+
+
+def phase_puzzle_path(tmp):
+    from vit_ed_tpu_torch import main as puzzle
+    from vit_ed_tpu_torch.models.build import build_model as build
+    from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
+
+    print(f"== phase 13: DIV2K main path, python -m vit_ed_tpu_torch.main --mode "
+          f"train (bf16, drop path 0.1, {PUZZLE_BATCH} pairs per step, depth 8 + 8)",
+          flush=True)
+    data = os.path.join(tmp, "div2k")
+    n_train, n_valid = write_div2k(data)
+    steps = []
+    inner = puzzle.DefaultTrainer.train_step
+
+    def recorded(self, micro_batches):
+        before, before_shapes = dict(A.launches), dict(A.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item(),
+                      "grad_norm": norm.item(),
+                      "launches": {k: A.launches[k] - before[k]
+                                   for k in PUZZLE_STEP_LAUNCHES},
+                      "shapes": {k: n - before_shapes.get(k, 0)
+                                 for k, n in A.launches_by_shape.items()
+                                 if n > before_shapes.get(k, 0)}})
+        return loss, norm
+
+    out = os.path.join(tmp, "out")
+    opts = ("--opts", "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "2")
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    puzzle.DefaultTrainer.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = puzzle.main(puzzle_argv(data, out, "train", "train", *opts))
+    finally:
+        puzzle.DefaultTrainer.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    # the main path's counts are read here, before the two other modes run
+    counts, shapes = dict(A.launches), dict(A.launches_by_shape)
+    ckpt_path = os.path.join(trainer.config.OUTPUT, "checkpoint.ckpt")
+    # another tag: a run directory's own checkpoint is resumed by train only
+    # and would keep --pretrained from loading
+    eval_argv = puzzle_argv(data, out, "eval", "eval", "--pretrained", ckpt_path, *opts)
+    A.reset_launch_counts()
+    eval_loss = puzzle.main(eval_argv)
+    eval_counts = dict(A.launches)
+    A.reset_launch_counts()
+    rate = puzzle.main(puzzle_argv(data, out, "eval", "throughput", "--pretrained",
+                                   ckpt_path, *opts))
+    torch.cuda.synchronize()
+    throughput_counts = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    ms = [s["ms"] for s in steps[1:]]      # the first step warms cuBLAS up
+    print(f"  {n_train} train + {n_valid} validation images, {len(steps)} optimizer "
+          f"steps of {PUZZLE_BATCH} pairs; step {np.median(ms):.1f} ms median "
+          f"({min(ms):.1f}-{max(ms):.1f}, first {steps[0]['ms']:.1f}); "
+          f"{PUZZLE_BATCH * len(ms) / (sum(ms) / 1e3):.1f} trained pairs/s (pairs over "
+          f"step time, host copy included; the loader's threads cut and resize the "
+          f"next batches meanwhile); {wall:.1f}s with model build, two validates and "
+          f"the checkpoint; peak device memory {peak:.2f} GiB")
+    print(f"  step ms in order {[round(s['ms'], 1) for s in steps]}")
+    print(f"  loss {[round(s['loss'], 4) for s in steps]}")
+    print(f"  grad_norm {[round(s['grad_norm'], 3) for s in steps]}")
+    print(f"  validation after the epoch: {trainer.val_metrics}; --mode eval from the "
+          f"checkpoint: loss {eval_loss:.4f}; --mode throughput: {rate:.1f} img/s "
+          f"(pairs of one validation batch, 30 forwards between CUDA events)")
+    by_shape = sorted((k[0], k[1], k[3], k[4], n) for k, n in steps[-1]["shapes"].items())
+    print(f"  launches per step {steps[-1]['launches']}; by shape (counter, B, Sq, Sk, "
+          f"launches) {by_shape}")
+    print(f"  launches of --mode train ({len(steps)} steps and two validates of "
+          f"3 batches) {nonzero(counts)}; of --mode eval {nonzero(eval_counts)}; of "
+          f"--mode throughput {nonzero(throughput_counts)}", flush=True)
+    if len(steps) != 10 or trainer.step != len(steps):
+        raise AssertionError(f"expected 10 optimizer steps, ran {len(steps)}")
+    for s in steps:
+        if not (np.isfinite(s["loss"]) and s["loss"] > 0
+                and np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0):
+            raise AssertionError(f"loss / grad_norm not finite and non-zero: {s}")
+        if s["launches"] != PUZZLE_STEP_LAUNCHES:
+            raise AssertionError(f"unexpected launches in a step: {s['launches']}")
+        if s["shapes"] != {(name, PUZZLE_BATCH, HH, n_q, n_k, HD): n
+                           for (name, n_q, n_k), n in PUZZLE_STEP_SHAPES.items()}:
+            raise AssertionError(f"unexpected launch shapes in a step: {s['shapes']}")
+    for name, run in (("train", counts), ("eval", eval_counts),
+                      ("throughput", throughput_counts)):
+        if any(v for k, v in run.items() if not k.startswith("heads_")):
+            raise AssertionError(f"--mode {name} at head_dim 32 launched a pair "
+                                 f"kernel: {nonzero(run)}")
+        if not all(run[f"heads_{k}"] > 0 for k in PUZZLE_PATH):
+            raise AssertionError(f"--mode {name} missed a 4-D forward: {nonzero(run)}")
+    if not (0.0 < eval_loss < 2.0 and 0.0 < trainer.min_loss < 2.0 and rate > 0):
+        raise AssertionError(f"validate gave {trainer.min_loss}, eval {eval_loss}, "
+                             f"throughput {rate}")
+
+    # parameters changed, and the checkpoint holds them
+    torch.manual_seed(trainer.config.SEED)
+    init = build(trainer.config, torch.device("cpu")).state_dict()
+    now = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    moved = sum(not torch.equal(init[k], now[k]) for k in init)
+    tree = load_checkpoint(ckpt_path)
+    same = all(torch.equal(tree["model"][k], now[k]) for k in now)
+    print(f"  {moved} of {len(init)} parameter tensors changed; checkpoint "
+          f"reloaded: step {tree['step']}, epoch {tree['epoch']}, model equal "
+          f"{same}", flush=True)
+    loaded = puzzle.DefaultTrainer(puzzle.parse_option(eval_argv)).model.state_dict()
+    if (moved < len(init) - 2 or not same or tree["step"] != len(steps)
+            or not all(torch.equal(loaded[k].cpu(), now[k]) for k in now)):
+        raise AssertionError("parameters did not move, the checkpoint differs or "
+                             "--pretrained did not load it")
+    step_breakdown(trainer)
+    host_input_cost(trainer, "PNG decode + flips, warp, crops and two resizes")
+    del trainer
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_heads_scan(tmp):
+    """The O(N^2) scan at head_dim 32: the hisfrag config with 12 heads (the
+    S >= 256 traffic for which the JAX package keeps its 4-D kernels)."""
+    from vit_ed_tpu_torch.hisfrag import main
+
+    opts = ["--opts", "MODEL.PJS.NUM_HEADS", str(HH), "MODEL.PJS.DEPTH", "2",
+            "MODEL.PJS.C_DEPTH", "2"]
+    print(f"  the scan at head_dim 32: python -m vit_ed_tpu_torch.hisfrag --mode test "
+          f"{' '.join(opts)}", flush=True)
+    data = os.path.join(tmp, "scan32")
+    n = write_corpus(data, writers=SCAN32_IMAGES // 4, seed=2)
+    A.reset_launch_counts()
+    metrics, dm, names, scorer = main([
+        "--cfg", FLAGSHIP_CFG, "--data-path", data, "--mode", "test",
+        "--output", os.path.join(tmp, "out"), "--tag", "scan32", *opts])
+    torch.cuda.synchronize()
+    counts, shapes = dict(A.launches), dict(A.launches_by_shape)
+    by_shape = sorted((k[0], k[1], k[3], k[4], v) for k, v in shapes.items())
+    print(f"  {n} images, {scorer.pairs_done} pairs in {scorer.scan_seconds:.3f}s: "
+          f"{scorer.pairs_done / scorer.scan_seconds:.1f} pairs/s at depth 2 + 2; "
+          f"launches {nonzero(counts)}; by shape (counter, B, Sq, Sk, launches) "
+          f"{by_shape}", flush=True)
+    if dm.shape != (n, n) or not np.array_equal(dm, dm.T) \
+            or scorer.pairs_done != n * (n + 1) // 2:
+        raise AssertionError("scan did not cover the symmetric pair space")
+    for name in ("heads_qkv", "heads_kv_shared", "heads_qkv_cls"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the head_dim 32 scan never launched {name}")
+    if any(v for k, v in counts.items() if not k.startswith("heads_")):
+        raise AssertionError(f"the head_dim 32 scan launched a pair kernel: {nonzero(counts)}")
+    scan_vs_direct(data, dm, [(0, 0), (0, 5), (3, 9), (7, 15)], opts[1:])
+    return shapes
 
 
 def main():
@@ -784,10 +1326,16 @@ def main():
         train_times = phase_backward_times(gen)
         phase_gradients(tmp)
         train_counts = phase_train_path(tmp)
+        heads_err = phase_heads_vs_plain(gen)
+        heads_times = phase_heads_times(gen)
+        phase_puzzle_model(tmp)
+        puzzle_shapes = phase_puzzle_path(tmp)
+        scan32_shapes = phase_heads_scan(tmp)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
-          f"{json.dumps(train_times['packed_bwd'])} max_abs_err "
+          f"{json.dumps(train_times['packed_dq'])} {json.dumps(train_times['packed_dkv'])} "
+          f"max_abs_err "
           f"{bwd_err['packed']:.3e}")
     # the scan's kernels carry phase 5's launches and phase 3's times; the
     # training path's carry phase 9's launches and phase 7's times
@@ -804,15 +1352,61 @@ def main():
         "name": "pair_attention_kv", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES["kv"], "launches": train_counts["kv"],
         "max_abs_err": err["kv"], **train_times["kv"]})
+    # the pair route's backward is the 4-D dq + dkv kernels at head_dim 64
     kernels += [{
         "name": f"pair_attention_{name}",
         "route": "cuda",
-        "source": BWD_SOURCE,
+        "source": HEADS_BWD_SOURCE,
         "replaces": BWD_REPLACES,
         "launches": train_counts[name],
-        "max_abs_err": bwd_err[name[:-4]],
+        "max_abs_err": bwd_err[name.rsplit("_", 1)[0]],
         **train_times[name],
     } for name in TRAIN_PATH_BWD]
+    print(f"  off every main path, 4-D route: fused_attention "
+          f"{json.dumps(heads_times['bhsd@s65'])} / {json.dumps(heads_times['bhsd@s1025'])} "
+          f"max_abs_err {heads_err['bhsd']:.3e}; fused_attention_flat "
+          f"({HEADS_REPLACES['flat']}) {json.dumps(heads_times['flat@s65'])} / "
+          f"{json.dumps(heads_times['flat@s1025'])} max_abs_err {heads_err['flat']:.3e}; "
+          f"kv_shared at B={PUZZLE_BATCH}: {json.dumps(heads_times['kv_shared@s65'])}; "
+          f"at B=64 S=1025: "
+          + "; ".join(f"{k} {json.dumps(v)}" for k, v in heads_times.items()
+                      if k.endswith("@s1025")
+                      and k.split("@")[0] not in ("bhsd", "flat")))
+
+    def launched(shapes, name, n_q, n_k):
+        """Launches of one counter at one (Sq, Sk), every batch size."""
+        return sum(n for key, n in shapes.items()
+                   if key[0] == name and key[3:5] == (n_q, n_k))
+
+    # one row per kernel, layout and shape of the puzzle path: ``launches`` is
+    # --mode train's count at that (Sq, Sk) (10 steps at B=128, and for the
+    # forward two validates of three batches), the times are phase 11's at
+    # that shape and B=128. The encoder's self-attention (S=64, no CLS token),
+    # the decoder's (S=65) and the last block's CLS-row cross-attention (Sq=1)
+    # are rows of their own. The shared-kv forward
+    # carries the head_dim 32 scan's launches at Sq=1025 and its time at the
+    # scan's own chunk shape.
+    for name, tag, n_q, n_k in (("qkv", "s65", 65, 65), ("qkv", "s64", 64, 64),
+                                ("qkv_cls", "s65", 1, 65), ("kv", "s65", 65, 64),
+                                ("kv", "cls", 1, 64)):
+        suffix = {"s64": "_encoder", "cls": "_cls_row"}.get(tag, "")
+        for kind, source in (("", HEADS_SOURCE), ("_dq", HEADS_BWD_SOURCE),
+                             ("_dkv", HEADS_BWD_SOURCE)):
+            kernels.append({
+                "name": f"heads_attention_{name}{kind}{suffix}", "route": "cuda",
+                "source": source,
+                "replaces": HEADS_REPLACES[kind[1:] or "forward"],
+                "launches": launched(puzzle_shapes, f"heads_{name}{kind}", n_q, n_k),
+                "max_abs_err": heads_err[name + ("_bwd" if kind else "")],
+                **heads_times[f"{name}{kind}@{tag}"]})
+    kernels.append({
+        "name": "heads_attention_kv_shared", "route": "cuda", "source": HEADS_SOURCE,
+        "replaces": HEADS_REPLACES["forward"],
+        "launches": launched(scan32_shapes, "heads_kv_shared", 1025, 1024),
+        "max_abs_err": heads_err["kv_shared"], **heads_times["kv_shared@scan"]})
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was launched no time on its main path")
     print(f"  total {time.time() - t_start:.1f}s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """The port's attention wrappers (vit_ed_tpu_torch/ops/attention.py) against
 the JAX package's Pallas pair kernel, run in interpret mode on the CPU.
 
-On the CPU every port wrapper runs ``pair_attention_plain`` (the CUDA
-kernel's chain in plain PyTorch); the kernel itself is held against that
+At head_dim 64 with C % 128 == 0 (the pair route, every case here) a port
+wrapper on the CPU runs ``pair_attention_plain`` (the CUDA kernel's chain
+in plain PyTorch); the kernel itself is held against that
 plain version on the card (tests/test_torch_cuda.py and chip_smoke.py). Inputs come from numpy seeds and go to both
 frameworks as numpy arrays.
 """
@@ -125,10 +126,11 @@ def test_kv_shared_equals_broadcast_and_cls_equals_row0(dtype):
 
 
 def test_kernel_rules_without_a_card():
-    """Raised before the card is touched: head_dim != 64 needs the 4-D
-    kernels; a shared kv must have batch 1."""
+    """Raised before the card is touched: the pair kernel takes head_dim 64
+    only (the wrappers send other geometries to the 4-D route); a shared kv
+    must have batch 1."""
     x = torch.zeros(2, 8, 96)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, slice 3"):
+    with pytest.raises(NotImplementedError, match="head_dim 64 only"):
         tattn._launch("packed", x, x, x, (0, 0, 0), 96, 3, 8, 0.2)
     with pytest.raises(ValueError, match="batch 1"):
         tattn.fused_attention_packed_kv_shared(torch.zeros(2, 8, 128),

@@ -1,5 +1,5 @@
-"""The pair-attention CUDA kernels, forward and backward, against their
-plain PyTorch versions, on the card. Every test here carries the ``cuda`` marker and skips without a card
+"""The attention CUDA kernels (pair and 4-D routes), forward and backward,
+against their plain PyTorch versions, on the card. Every test here carries the ``cuda`` marker and skips without a card
 (the kernel has no CPU mode). The file imports nothing of JAX, so it runs
 on a machine without it:
 
@@ -77,11 +77,24 @@ def test_shared_and_cls_are_bit_exact_on_card(card, dtype):
 @pytest.mark.cuda
 def test_kernel_rules_on_card(card):
     x = torch.zeros(2, 8, 96, device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, slice 3"):
-        A.fused_attention_packed(x, x, x, 3)
+    before = A.launches["heads_packed"]
+    assert A.fused_attention_packed(x, x, x, 3).shape == (2, 8, 96)   # d = 32
+    assert A.launches["heads_packed"] == before + 1
+    with pytest.raises(NotImplementedError, match=r"\(16, 32, 64, 128\)"):
+        A.fused_attention_packed(x, x, x, 2)                          # d = 48
+    with pytest.raises(NotImplementedError, match="head_dim 64 only"):
+        A._launch("packed", x, x, x, (0, 0, 0), 96, 3, 8, 0.2)
     q = torch.zeros(2, 8, C, device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="eval-only"):
         A.fused_attention_packed_kv_shared(q, torch.zeros(1, 8, 2 * C, device=card), H)
+    # only kv_shared broadcasts a batch-1 kv: on the 4-D route the others
+    # raise, with and without grad, as they do on the CPU
+    for grad in (False, True):
+        q = torch.zeros(2, 8, 96, device=card, requires_grad=grad)
+        before = dict(A.launches)
+        with pytest.raises(ValueError, match="does not match"):
+            A.fused_attention_packed_kv(q, torch.zeros(1, 8, 192, device=card), 3)
+        assert A.launches == before
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -102,18 +115,20 @@ def _grads(wrapper, inputs, do):
 def test_backward_kernel_matches_plain(card, wrapper, s, dtype):
     """Each VJP on the card (the backward kernels) against the same VJP on
     the CPU (``pair_attention_backward_plain``): f32 within 1e-4 of the
-    gradient's max, bf16 within 2e-2; two launches give the same bits (the
-    kernels use no atomics)."""
+    gradient's max, bf16 within 2e-2; two runs give the same bits (the
+    kernels use no atomics). The pair route runs the dq and dk/dv kernels
+    of heads_attention_bwd.cu at head_dim 64."""
     cpu = _inputs(s + 1, s, dtype)
     rows = 1 if wrapper == "qkv_cls" else s
     do = torch.from_numpy(np.random.default_rng(s).normal(
         size=(B, rows, C)).astype(np.float32)).to(dtype)
     dev = {n: t.to(card) for n, t in cpu.items()}
-    before = A.launches[wrapper + "_bwd"]
+    before = (A.launches[wrapper + "_dq"], A.launches[wrapper + "_dkv"])
     got = _grads(wrapper, dev, do.to(card))
     again = _grads(wrapper, dev, do.to(card))
     torch.cuda.synchronize()
-    assert A.launches[wrapper + "_bwd"] == before + 2
+    assert (A.launches[wrapper + "_dq"],
+            A.launches[wrapper + "_dkv"]) == (before[0] + 2, before[1] + 2)
     ref = _grads(wrapper, cpu, do)
     for g, g2, r in zip(got, again, ref):
         assert torch.equal(g, g2)
@@ -155,3 +170,172 @@ def test_training_on_card_matches_cpu_and_recomputation(card):
         np.testing.assert_allclose(ckpt[n].numpy(), plain[n].numpy(),
                                    rtol=1e-5, atol=1e-7, err_msg=n)
     assert any(not torch.equal(plain[n], dev[n]) for n in plain)
+
+
+# ---------------------------------------------------------------------------
+# the 4-D route: head_dim 32 through every wrapper, 16 / 64 / 128 at one shape
+# ---------------------------------------------------------------------------
+
+HC, HH = 96, 3      # 3 heads of head_dim 32
+
+
+def _heads_inputs(seed, s, dtype, c=HC, h=HH):
+    rng = np.random.default_rng(seed)
+    d = c // h
+    shapes = {"qkv": (B, s, 3 * c), "q": (B, s, c), "kv": (B, s - 1, 2 * c),
+              "kv1": (1, s - 1, 2 * c), "k": (B, s - 1, c), "v": (B, s - 1, c),
+              "q4": (B, h, s, d), "k4": (B, h, s - 1, d), "v4": (B, h, s - 1, d),
+              "q3": (B * h, s, d), "k3": (B * h, s - 1, d), "v3": (B * h, s - 1, d)}
+    return {n: torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dtype)
+            for n, sh in shapes.items()}
+
+
+HEADS_CALLS = {
+    "qkv": lambda a: A.fused_attention_packed_qkv(a["qkv"], HH),
+    "kv_shared": lambda a: A.fused_attention_packed_kv_shared(a["q"], a["kv1"], HH),
+    "qkv_cls": lambda a: A.fused_attention_packed_qkv_cls(a["qkv"], HH),
+    "kv": lambda a: A.fused_attention_packed_kv(a["q"], a["kv"], HH),
+    "packed": lambda a: A.fused_attention_packed(a["q"], a["k"], a["v"], HH),
+    "bhsd": lambda a: A.fused_attention(a["q4"], a["k4"], a["v4"]),
+    "bhsd_eval": lambda a: A.fused_attention_heads(a["q4"], a["k4"], a["v4"]),
+    "flat": lambda a: A.fused_attention_flat(a["q3"], a["k3"], a["v3"]),
+}
+HEADS_VJPS = {"qkv": ("qkv",), "qkv_cls": ("qkv",), "kv": ("q", "kv"),
+              "packed": ("q", "k", "v"), "bhsd": ("q4", "k4", "v4"),
+              "flat": ("q3", "k3", "v3")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [64, 65, 261])
+@pytest.mark.parametrize("wrapper", sorted(HEADS_CALLS))
+def test_heads_kernel_matches_plain(card, wrapper, s, dtype):
+    """Every wrapper at head_dim 32 on the card (heads_attention.cu) against
+    the same call on the CPU (``heads_attention_plain``); S = 64 is the
+    puzzle encoder's self-attention (no CLS token, one full tile)."""
+    cpu = _heads_inputs(s, s, dtype)
+    before = A.launches["heads_" + wrapper]
+    with torch.inference_mode():
+        out = HEADS_CALLS[wrapper]({n: t.to(card) for n, t in cpu.items()})
+        torch.cuda.synchronize()
+    assert A.launches["heads_" + wrapper] == before + 1
+    plain = HEADS_CALLS[wrapper](cpu)
+    assert out.dtype == dtype and out.shape == plain.shape
+    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_shared_and_cls_are_bit_exact_on_card(card, dtype):
+    a = {n: t.to(card) for n, t in _heads_inputs(1, 261, dtype).items()}
+    with torch.inference_mode():
+        shared = A.fused_attention_packed_kv_shared(a["q"], a["kv1"], HH)
+        bcast = A.fused_attention_packed_kv(
+            a["q"], a["kv1"].expand(B, -1, -1).contiguous(), HH)
+        cls = A.fused_attention_packed_qkv_cls(a["qkv"], HH)
+        full = A.fused_attention_packed_qkv(a["qkv"], HH)
+        torch.cuda.synchronize()
+    assert torch.equal(shared, bcast)
+    assert torch.equal(cls, full[:, :1])
+
+
+def _heads_grads(wrapper, inputs, do):
+    args = [inputs[n].detach().clone().requires_grad_() for n in HEADS_VJPS[wrapper]]
+    HEADS_CALLS[wrapper](dict(zip(HEADS_VJPS[wrapper], args))).backward(do)
+    return [a.grad for a in args]
+
+
+def _assert_grads_close(got, again, ref, dtype):
+    for g, g2, r in zip(got, again, ref):
+        assert torch.equal(g, g2)
+        assert g.dtype == dtype and g.shape == r.shape
+        scale = max(r.float().abs().max().item(), 1.0 if dtype == torch.bfloat16 else 1e-6)
+        err = (g.float().cpu() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [64, 65, 261])
+@pytest.mark.parametrize("wrapper", sorted(HEADS_VJPS))
+def test_heads_backward_kernels_match_plain(card, wrapper, s, dtype):
+    """Each VJP of the 4-D route on the card (heads_attention_bwd.cu: dq,
+    then dk/dv) against the same VJP on the CPU
+    (``attention_backward_plain``): f32 within 1e-4 of the gradient's max,
+    bf16 within 2e-2; two runs give the same bits."""
+    cpu = _heads_inputs(s + 1, s, dtype)
+    ref_out = HEADS_CALLS[wrapper](cpu)
+    do = torch.from_numpy(np.random.default_rng(s).normal(
+        size=tuple(ref_out.shape)).astype(np.float32)).to(dtype)
+    dev = {n: t.to(card) for n, t in cpu.items()}
+    before = (A.launches[f"heads_{wrapper}_dq"], A.launches[f"heads_{wrapper}_dkv"])
+    got = _heads_grads(wrapper, dev, do.to(card))
+    again = _heads_grads(wrapper, dev, do.to(card))
+    torch.cuda.synchronize()
+    assert (A.launches[f"heads_{wrapper}_dq"],
+            A.launches[f"heads_{wrapper}_dkv"]) == (before[0] + 2, before[1] + 2)
+    _assert_grads_close(got, again, _heads_grads(wrapper, cpu, do), dtype)
+    if wrapper == "qkv_cls":
+        assert torch.count_nonzero(got[0][:, 1:, :HC]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_other_head_dims_match_plain(card, d, dtype):
+    """head_dim 16, 64 and 128 of the 4-D kernels, forward and the three
+    gradients, on [B, H, S, D] and through the packed qkv wrapper (d = 64
+    with C = 192 takes the 4-D route: C % 128 != 0)."""
+    cpu = _heads_inputs(d, 70, dtype, c=3 * d, h=3)
+    dev = {n: t.to(card) for n, t in cpu.items()}
+    for names, call in ((("q4", "k4", "v4"), lambda *a: A.fused_attention(*a)),
+                        (("qkv",), lambda x: A.fused_attention_packed_qkv(x, 3))):
+        def run(src):
+            args = [src[n].detach().clone().requires_grad_() for n in names]
+            out = call(*args)
+            do = torch.from_numpy(np.random.default_rng(0).normal(
+                size=tuple(out.shape)).astype(np.float32)).to(out)
+            out.backward(do)
+            return out.detach(), [a.grad for a in args]
+
+        before = dict(A.launches)
+        out, got = run(dev)
+        _, again = run(dev)
+        torch.cuda.synchronize()
+        assert sum(A.launches.values()) == sum(before.values()) + 6
+        assert all(A.launches[k] == before[k] for k in before if not k.startswith("heads_"))
+        ref_out, ref = run(cpu)
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref_out.float().numpy(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        _assert_grads_close(got, again, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_puzzle_model_trains_on_card_like_cpu(card):
+    """A small 4-class ViT-ED with head_dim 32 in training mode on a stacked
+    pair: f32 logits and gradients through the 4-D kernels against the CPU's
+    plain versions."""
+    from vit_ed_tpu_torch.models.vit_ed import ViTED
+
+    kw = dict(embed_dim=64, num_heads=2, depth=1, c_depth=2, img_size=32,
+              patch_size=8, num_classes=4)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 2, 32, 32, 3)).astype(np.float32))
+
+    def run(device):
+        torch.manual_seed(0)
+        model = ViTED(**kw).to(device).train()
+        model.seed_drop_path(3)
+        out = model(x.to(device))
+        out.square().sum().backward()
+        return out.detach().cpu(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    A.reset_launch_counts()
+    (out_cpu, cpu), (out_dev, dev) = run("cpu"), run(card)
+    assert A.launches["heads_qkv"] == 2 and A.launches["heads_qkv_cls"] == 1
+    assert A.launches["heads_kv"] == 2 and A.launches["heads_kv_dkv"] == 2
+    np.testing.assert_allclose(out_dev.numpy(), out_cpu.numpy(), atol=1e-5)
+    for n in cpu:
+        err = (dev[n] - cpu[n]).abs().max().item()
+        assert err <= 1e-4 * max(cpu[n].abs().max().item(), 1e-12), n

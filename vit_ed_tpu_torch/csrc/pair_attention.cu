@@ -47,11 +47,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;
 constexpr float kExp2Clamp = 80.0f;  // _EXP2_CLAMP of the TPU kernel
-constexpr int kThreads = 128;
 constexpr int kRows = 64;             // query rows per block (both kernels)
 
 struct Params {
@@ -143,35 +144,12 @@ pair_attention_fma_f32(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel: mma.sync.m16n8k16, 4 warps x 16 query rows.
-// Fragment layouts (PTX ISA, m16n8k16 .bf16): g = lane / 4, t = lane % 4;
-//   A (16x16, row): a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..) a3 (g+8, 2t+8..)
-//   B (16x8, col):  b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
-//   C (16x8, f32):  c0 c1 (g, 2t..2t+1)   c2 c3 (g+8, 2t..2t+1)
+// bf16 tensor-core kernel: mma.sync.m16n8k16, 4 warps x 16 query rows
+// (fragment layouts and packing: attention_mma.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaKeys = 64;
 constexpr int kLd = kHeadDim + 8;  // smem row pitch (144 B): conflict-free B loads
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2 (round to nearest even); `lo` in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
 
 __global__ void __launch_bounds__(kThreads)
 pair_attention_mma_bf16(const Params p) {

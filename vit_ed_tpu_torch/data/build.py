@@ -1,19 +1,28 @@
 """Dataset factory (``vit_ed_tpu/data/build.py``): returns
-``(dataset, repeat)`` where ``repeat`` multiplies the epoch length. Only
-``hisfrag20`` is ported; the other datasets wait for their entries
-(ROADMAP queue A item 8)."""
+``(dataset, repeat)`` where ``repeat`` multiplies the epoch length.
+``hisfrag20`` and ``div2k`` are ported; the other datasets wait for their
+entries (ROADMAP queue A item 8)."""
 
 from __future__ import annotations
 
 
 def build_dataset(mode, config, transforms):
     name = config.DATA.DATASET
-    if name != "hisfrag20":
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP queue A item 8); "
-            f"only 'hisfrag20' is")
-    from vit_ed_tpu_torch.data.hisfrag import HisFrag20, Split
+    transform = transforms[mode]
+    if name == "hisfrag20":
+        from vit_ed_tpu_torch.data.hisfrag import HisFrag20, Split
 
-    dataset = HisFrag20(config.DATA.DATA_PATH, Split.from_string(mode),
-                        transform=transforms[mode])
-    return dataset, 3
+        dataset = HisFrag20(config.DATA.DATA_PATH, Split.from_string(mode),
+                            transform=transform)
+        return dataset, 3
+    if name == "div2k":
+        from vit_ed_tpu_torch.data.div2k import DIV2KPatch, Split
+
+        split = Split.from_string(mode)
+        dataset = DIV2KPatch(config.DATA.DATA_PATH, split, transform=transform,
+                             with_negative=True, image_size=config.DATA.IMG_SIZE,
+                             erosion_ratio=config.DATA.EROSION_RATIO)
+        return dataset, 5 if split.is_train() else 10
+    raise NotImplementedError(
+        f"dataset {name!r} is not ported yet (ROADMAP queue A item 8); "
+        f"only 'hisfrag20' and 'div2k' are")

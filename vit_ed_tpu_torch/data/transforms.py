@@ -1,11 +1,13 @@
 """Image transforms of the scoring and training paths (PIL / numpy).
 
 The port's copy of the pieces of ``vit_ed_tpu/data/transforms.py`` that
-the hisfrag entry uses. Eval: ``open_rgb``, ``center_crop``, ``to_tensor``,
-``normalize``, ``as_sample_array`` and ``OneImgEval``. Training:
-``random_affine``, ``shift_scale_rotate`` (both through ``warp_affine``,
-the numpy affine warp with cv2 INTER_LINEAR semantics), ``random_crop``,
-``color_jitter``, ``GaussianBlur`` and ``normalize_image``. The JAX package
+the hisfrag and DIV2K entries use. Eval: ``open_rgb``, ``resize``,
+``center_crop``, ``to_tensor``, ``normalize``, ``as_sample_array``,
+``OneImgEval`` and ``TwoImgSyncEval``. Training: ``random_affine``,
+``shift_scale_rotate`` (both through ``warp_affine``, the numpy affine warp
+with cv2 INTER_LINEAR semantics), ``rgb_shift``, ``random_crop``,
+``color_jitter``, ``GaussianBlur`` and ``normalize_image``; ``crop`` splits
+an image into the puzzle grid. The JAX package
 also has a native C++ fast path for these; it is bit-exact to the PIL +
 numpy chain below, so the port keeps only the chain (no cv2, no native
 code). The random draws come from Python's ``random`` in the JAX package's
@@ -53,16 +55,16 @@ def as_sample_array(image) -> np.ndarray:
     return np.asarray(image, np.float32)
 
 
-def _resize(img: Image.Image, size) -> Image.Image:
+def resize(img: Image.Image, size, interpolation=Image.BILINEAR) -> Image.Image:
     """torchvision Resize semantics: an int size resizes the SHORTER side."""
     if isinstance(size, int):
         w, h = img.size
         if (w <= h and w == size) or (h <= w and h == size):
             return img
         if w < h:
-            return img.resize((size, int(size * h / w)), Image.BILINEAR)
-        return img.resize((int(size * w / h), size), Image.BILINEAR)
-    return img.resize((size[1], size[0]), Image.BILINEAR)
+            return img.resize((size, int(size * h / w)), interpolation)
+        return img.resize((int(size * w / h), size), interpolation)
+    return img.resize((size[1], size[0]), interpolation)
 
 
 def center_crop(img: Image.Image, size) -> Image.Image:
@@ -98,16 +100,41 @@ class OneImgEval:
 
     def __call__(self, img):
         img = (center_crop(img, self.image_size) if self.crop
-               else _resize(img, self.image_size))
+               else resize(img, self.image_size))
         if self.emit_u8:
             arr = np.asarray(img, np.uint8)
             return arr[:, :, None] if arr.ndim == 2 else arr
         return normalize(to_tensor(img))
 
 
+class TwoImgSyncEval:
+    """Resize + normalize both images of a pair."""
+
+    def __init__(self, image_size):
+        self.image_size = image_size
+
+    def _one(self, img: Image.Image) -> np.ndarray:
+        return normalize(to_tensor(resize(img, self.image_size)))
+
+    def __call__(self, first_img, second_img):
+        return self._one(first_img), self._one(second_img)
+
+
 def normalize_image(img: Image.Image, mean=(0.5, 0.5, 0.5),
                     std=(0.5, 0.5, 0.5)) -> np.ndarray:
     return normalize(to_tensor(img), mean, std)
+
+
+def crop(im: Image.Image, n_cols: int, n_rows: int):
+    """Split an image into a row-major grid of n_rows x n_cols patches."""
+    width = im.width // n_cols
+    height = im.height // n_rows
+    patches = []
+    for i in range(n_rows):
+        for j in range(n_cols):
+            box = (j * width, i * height, (j + 1) * width, (i + 1) * height)
+            patches.append(im.crop(box))
+    return patches
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +263,16 @@ def shift_scale_rotate(img: Image.Image, shift_limit=0.05, scale_limit=0.15,
     m[0, 2] += dx
     m[1, 2] += dy
     return Image.fromarray(warp_affine(arr, m, border_value))
+
+
+def rgb_shift(img: Image.Image, limit=15, p=0.5) -> Image.Image:
+    """albumentations RGBShift equivalent."""
+    if random.random() >= p:
+        return img
+    arr = np.asarray(img).astype(np.int16)
+    for c in range(min(3, arr.shape[-1])):
+        arr[..., c] += random.randint(-limit, limit)
+    return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
 
 
 def random_affine(img: Image.Image, degrees=5, translate=(0.1, 0.1), fill=0,

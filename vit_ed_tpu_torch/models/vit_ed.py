@@ -15,9 +15,11 @@ parameters stay float32 and are cast at use, as flax does.
 
 Every method is differentiable except the shared-row scan op
 ``score_tokens_row`` (its kernel launch is eval-only, as in the JAX
-package). The attention calls dispatch by device, forward and backward
-alike (ops/attention.py): CPU tensors run the plain versions, CUDA tensors
-launch the kernels or raise. In training mode stochastic depth draws from
+package). The attention calls dispatch by geometry and then by device,
+forward and backward alike (ops/attention.py): head_dim 64 with C % 128 == 0
+takes the pair route, every other supported head_dim (16, 32, 64, 128) the
+4-D route; CPU tensors run the route's plain versions, CUDA tensors launch
+its kernels or raise. In training mode stochastic depth draws from
 ``drop_path_generator`` (seed it with ``seed_drop_path``), and with
 ``use_checkpoint`` every block is recomputed in the backward pass
 (``TRAIN.USE_CHECKPOINT``, flax ``remat`` in the JAX package) with the

@@ -3,8 +3,9 @@
 Each source under ``vit_ed_tpu_torch/csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries land
-in ``vit_ed_tpu_torch/build/`` (git-ignored), named by a hash of the source
-and the flags, so an edited source rebuilds on its next first use.
+in ``vit_ed_tpu_torch/build/`` (git-ignored), named by a hash of the source,
+the shared headers (``*.cuh``) and the flags, so an edited source rebuilds
+on its next first use.
 Nothing is built when a module is imported: the first kernel call builds.
 """
 
@@ -46,8 +47,12 @@ def find_nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it (attention_mma.cuh)
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
 

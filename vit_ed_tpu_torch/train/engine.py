@@ -17,11 +17,14 @@ PyTorch:
 - the LR schedule is evaluated on the number of updates already applied
   and written into the optimizer before each update.
 
-Not ported yet (ROADMAP, "what the training slice left out"): a device mesh and every
+``throughput()`` times forwards of one validation batch; with
+``TPU.PROFILE_DIR`` set it also writes a ``torch.profiler`` trace of the
+timed region.
+
+Not ported yet (ROADMAP, "what the slices left out"): a device mesh and every
 parallelism switch (they raise), BatchNorm running statistics, MoE aux
 losses, the SIGTERM guard with mid-epoch exact-step resume
-(``utils/preempt.py``), ``throughput()``, the MFU report and the profiler
-hook.
+(``utils/preempt.py``) and the MFU report.
 """
 
 from __future__ import annotations
@@ -36,7 +39,13 @@ import numpy as np
 import torch
 
 from vit_ed_tpu_torch.config import get_config
+from vit_ed_tpu_torch.data.build import build_dataset
 from vit_ed_tpu_torch.data.loader import DataLoader
+from vit_ed_tpu_torch.data.samplers import (
+    DistributedEvalSampler,
+    DistributedRepeatSampler,
+)
+from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
 from vit_ed_tpu_torch.device import resolve_device
 from vit_ed_tpu_torch.models.build import build_model
 from vit_ed_tpu_torch.train import checkpoint as ckpt
@@ -47,6 +56,7 @@ from vit_ed_tpu_torch.train.optim import (
     set_lr,
 )
 from vit_ed_tpu_torch.utils import AverageMeter, create_logger, set_seed
+from vit_ed_tpu_torch.utils.profiler import maybe_trace
 
 Batch = Dict[str, torch.Tensor]
 LossFn = Callable[[torch.nn.Module, Batch], torch.Tensor]
@@ -122,10 +132,36 @@ class Trainer:
 
     # ------------------------------------------------------------- data hooks
     def get_transforms(self) -> Dict[str, Callable]:
-        raise NotImplementedError()
+        transform = TwoImgSyncEval(self.config.DATA.IMG_SIZE)
+        return {"train": transform, "validation": transform, "test": transform}
 
     def get_dataloader(self, mode: str) -> DataLoader:
-        raise NotImplementedError()
+        """Repeat-sampled, shuffled, drop-last batches for ``train``; an
+        exact, unpadded pass (x repeat) at TEST_BATCH_SIZE otherwise."""
+        if mode in self.data_loader_registers:
+            return self.data_loader_registers[mode]
+        config = self.config
+        dataset, repeat = build_dataset(mode=mode, config=config,
+                                        transforms=self.get_transforms())
+        self.logger.info(f"successfully built {mode} dataset "
+                         f"({len(dataset)} items, repeat {repeat})")
+        if mode == "train":
+            sampler = DistributedRepeatSampler(
+                len(dataset), shuffle=True, repeat=repeat, seed=config.SEED)
+            loader = DataLoader(dataset, sampler=sampler,
+                                batch_size=config.DATA.BATCH_SIZE,
+                                num_workers=config.DATA.NUM_WORKERS,
+                                drop_last=True)
+        else:
+            sampler = DistributedEvalSampler(
+                len(dataset), shuffle=config.TEST.SHUFFLE, repeat=repeat,
+                seed=config.SEED)
+            loader = DataLoader(dataset, sampler=sampler,
+                                batch_size=config.DATA.TEST_BATCH_SIZE,
+                                num_workers=config.DATA.NUM_WORKERS,
+                                drop_last=False)
+        self.data_loader_registers[mode] = loader
+        return loader
 
     def prepare_data(self, samples: np.ndarray, targets: np.ndarray
                      ) -> Dict[str, np.ndarray]:
@@ -139,8 +175,12 @@ class Trainer:
 
     def make_loss_fn(self, criterion: Callable) -> LossFn:
         """``loss_fn(model, batch) -> scalar loss`` on the device tensors of
-        one prepared batch."""
-        raise NotImplementedError()
+        one prepared batch. The default is the supervised pair loss:
+        ``criterion`` on the float32 logits of the stacked pairs."""
+        def loss_fn(model, batch):
+            return criterion(model(batch["samples"]).float(), batch["targets"])
+
+        return loss_fn
 
     def validate(self) -> float:
         raise NotImplementedError()
@@ -275,3 +315,36 @@ class Trainer:
         self.logger.info(
             f"EPOCH {epoch} training takes "
             f"{datetime.timedelta(seconds=int(epoch_time))}")
+
+    # ------------------------------------------------------------- throughput
+    def throughput(self, warmup: int = 50, timed: int = 30) -> float:
+        """``warmup`` + ``timed`` forwards of the first validation batch ->
+        images (pairs) per second. On a card the timed forwards run between
+        two CUDA events and end in a synchronise; with TPU.PROFILE_DIR set
+        a profiler trace of the timed region is written."""
+        images, _ = next(iter(self.get_dataloader("validation")))
+        x = self._to_device({"samples": images})["samples"]
+        batch_size = x.shape[0]
+        cuda = self.device.type == "cuda"
+        self.model.eval()
+        with torch.inference_mode():
+            for _ in range(warmup):
+                self.model(x)
+            self.logger.info(f"throughput averaged with {timed} times")
+            with maybe_trace(self.config.TPU.PROFILE_DIR, "throughput"):
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                tic = time.time()
+                for _ in range(timed):
+                    self.model(x)
+                if cuda:
+                    stop.record()
+                    torch.cuda.synchronize(self.device)
+                    seconds = start.elapsed_time(stop) / 1e3
+                else:
+                    seconds = time.time() - tic
+        throughput_val = timed * batch_size / seconds
+        self.logger.info(f"batch_size {batch_size} throughput {throughput_val}")
+        return throughput_val
