@@ -98,6 +98,17 @@ def test_kernel_rules_on_card(card):
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_err(g, r):
+    """max |g - r| / max |r|: a gradient's error against its own largest
+    element, in both types (no absolute floor, which would pass a zero
+    gradient whose elements are all small). Printed, so that a run with -s
+    shows the readings the tolerance is set between."""
+    err = (g.float().cpu() - r.float().cpu()).abs().max().item()
+    rel = err / max(r.float().abs().max().item(), 1e-12)
+    print(f"grad reading {str(g.dtype)[6:]} {tuple(g.shape)} {rel:.3e}")
+    return rel
 VJPS = {"qkv": ("qkv",), "qkv_cls": ("qkv",), "kv": ("q", "kv"),
         "packed": ("q", "k", "v")}
 
@@ -114,8 +125,8 @@ def _grads(wrapper, inputs, do):
 @pytest.mark.parametrize("wrapper", sorted(VJPS))
 def test_backward_kernel_matches_plain(card, wrapper, s, dtype):
     """Each VJP on the card (the backward kernels) against the same VJP on
-    the CPU (``pair_attention_backward_plain``): f32 within 1e-4 of the
-    gradient's max, bf16 within 2e-2; two runs give the same bits (the
+    the CPU (``pair_attention_backward_plain``): f32 within 1e-4 and bf16
+    within 2e-2 of each gradient's max; two runs give the same bits (the
     kernels use no atomics). The pair route runs the dq and dk/dv kernels
     of heads_attention_bwd.cu at head_dim 64."""
     cpu = _inputs(s + 1, s, dtype)
@@ -133,9 +144,8 @@ def test_backward_kernel_matches_plain(card, wrapper, s, dtype):
     for g, g2, r in zip(got, again, ref):
         assert torch.equal(g, g2)
         assert g.dtype == dtype and g.shape == r.shape
-        scale = max(r.float().abs().max().item(), 1.0 if dtype == torch.bfloat16 else 1e-6)
-        err = (g.float().cpu() - r.float()).abs().max().item()
-        assert err <= BWD_TOL[dtype] * scale, (err, scale)
+        err = _grad_err(g, r)
+        assert err <= BWD_TOL[dtype], err
     if wrapper == "qkv_cls":
         assert torch.count_nonzero(got[0][:, 1:, :C]) == 0
 
@@ -250,9 +260,8 @@ def _assert_grads_close(got, again, ref, dtype):
     for g, g2, r in zip(got, again, ref):
         assert torch.equal(g, g2)
         assert g.dtype == dtype and g.shape == r.shape
-        scale = max(r.float().abs().max().item(), 1.0 if dtype == torch.bfloat16 else 1e-6)
-        err = (g.float().cpu() - r.float()).abs().max().item()
-        assert err <= BWD_TOL[dtype] * scale, (err, scale)
+        err = _grad_err(g, r)
+        assert err <= BWD_TOL[dtype], err
 
 
 @pytest.mark.cuda
@@ -262,8 +271,8 @@ def _assert_grads_close(got, again, ref, dtype):
 def test_heads_backward_kernels_match_plain(card, wrapper, s, dtype):
     """Each VJP of the 4-D route on the card (heads_attention_bwd.cu: dq,
     then dk/dv) against the same VJP on the CPU
-    (``attention_backward_plain``): f32 within 1e-4 of the gradient's max,
-    bf16 within 2e-2; two runs give the same bits."""
+    (``attention_backward_plain``): f32 within 1e-4 and bf16 within 2e-2
+    of each gradient's max; two runs give the same bits."""
     cpu = _heads_inputs(s + 1, s, dtype)
     ref_out = HEADS_CALLS[wrapper](cpu)
     do = torch.from_numpy(np.random.default_rng(s).normal(
@@ -339,3 +348,112 @@ def test_puzzle_model_trains_on_card_like_cpu(card):
     for n in cpu:
         err = (dev[n] - cpu[n]).abs().max().item()
         assert err <= 1e-4 * max(cpu[n].abs().max().item(), 1e-12), n
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels alone (heads_attention_dq, then heads_attention_dkv):
+# dq, dk, dv and the row statistics dq hands to dkv, at ragged lengths
+# ---------------------------------------------------------------------------
+
+BWD_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1025]
+# (Sq, Sk): every length against itself, and a few lengths against others
+BWD_SHAPES = ([(s, s) for s in BWD_LENGTHS]
+              + [(1, 65), (65, 1), (17, 129), (129, 17), (64, 1025), (1025, 63)])
+
+
+def _stats_plain(q, k, v, do, scale):
+    """[3, B, H, Sq]: the softmax row max of s = q k^T * scale, 1 / sum
+    exp(s - max) and delta = rowsum(dp * p), in f32 from the same inputs."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    m = s.amax(-1)
+    il = 1.0 / torch.exp(s - m[..., None]).sum(-1)
+    dp = do.float() @ v.float().transpose(-1, -2)
+    return torch.stack([m, il, (dp * torch.softmax(s, -1)).sum(-1)])
+
+
+def _bwd_kernels(layout, q, k, v, do, scale, grads):
+    """Both backward launches on [B, H, S, D] views; ``grads`` are the dq, dk,
+    dv views they write. Returns (dq, dk, dv, stats) as fresh tensors."""
+    dq, dk, dv = grads
+    stats = A._launch_heads_dq(layout, q, k, v, do, dq, scale)
+    A._launch_heads_dkv(layout, q, k, v, do, dk, dv, stats, scale)
+    torch.cuda.synchronize()
+    return [x.clone() for x in (dq, dk, dv, stats)]
+
+
+def _assert_bwd_matches(got, again, q, k, v, do, scale, dtype):
+    """Kernel gradients and statistics against ``attention_backward_plain``
+    and ``_stats_plain`` on the same views (gradients within the tolerance of
+    their max, as the wrappers' tests; the f32 statistics within 1e-4 of
+    theirs), and two runs bit for bit."""
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    ref = [*A.attention_backward_plain(q, k, v, do, scale),
+           _stats_plain(q, k, v, do, scale)]
+    for name, g, r in zip(("dq", "dk", "dv", "stats"), got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        if name == "stats":
+            for i in range(3):
+                err = (g[i] - r[i]).abs().max().item()
+                assert err <= 1e-4 * max(r[i].abs().max().item(), 1e-6), (name, i, err)
+            continue
+        assert g.dtype == dtype, name
+        err = _grad_err(g, r)
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk", BWD_SHAPES)
+def test_backward_kernels_at_ragged_lengths(card, sq, sk, d, dtype):
+    """dq, dk, dv and the statistics buffer on contiguous [B, H, S, D]
+    tensors, for query and key counts around the 16- and 64-row tiles (a
+    ragged last tile computes only its groups that hold a real row)."""
+    rng = np.random.default_rng(sq * 7919 + sk * 31 + d)
+    shapes = ((2, 2, sq, d), (2, 2, sk, d), (2, 2, sk, d), (2, 2, sq, d))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(card, dtype)
+                   for sh in shapes)
+    scale = d ** -0.5
+
+    def run():
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        return _bwd_kernels("bhsd", q, k, v, do, scale, grads)
+
+    _assert_bwd_matches(run(), run(), q, k, v, do, scale, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [1, 17, 65, 129])
+@pytest.mark.parametrize("layout", ["qkv", "qkv_cls", "kv", "packed", "bhsd", "flat",
+                                    "kv_stride0"])
+def test_backward_kernels_through_layout_views(card, layout, s, d, dtype):
+    """The two launches on the views each wrapper hands them: column slices
+    of a fused qkv / kv projection (and its CLS row), separate tensors,
+    [B, H, S, D], [B*H, S, D], and k / v of batch stride 0 (a batch-1 kv
+    read by every q; dk and dv go to buffers of their own)."""
+    h = 3
+    cpu = _heads_inputs(100 * s + d, s + 1, dtype, c=h * d, h=h)
+    t = {n: x.to(card) for n, x in cpu.items()}
+    if layout == "kv_stride0":
+        q = t["q4"]
+        k, v = (x[:1].expand(B, -1, -1, -1) for x in (t["k4"], t["v4"]))
+        views = (q, k, v)
+        grads = [torch.empty(x.shape, dtype=dtype, device=card) for x in views]
+        assert k.stride(0) == 0
+        name = "bhsd"
+    else:
+        tensors = [t[n] for n in HEADS_VJPS[layout]]
+        views = A._heads_views(layout, tensors, h)
+        bufs = [torch.empty_like(x) for x in tensors]
+        grads = A._heads_views(layout, bufs, h)
+        name = layout
+    q, k, v = views
+    do = torch.from_numpy(np.random.default_rng(s).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(card, dtype)
+    scale = d ** -0.5
+    got = _bwd_kernels(name, q, k, v, do, scale, grads)
+    again = _bwd_kernels(name, q, k, v, do, scale, grads)
+    _assert_bwd_matches(got, again, q, k, v, do, scale, dtype)

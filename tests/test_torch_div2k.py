@@ -6,6 +6,7 @@ imports. Everything here is host-side numpy / PIL: equality is exact.
 
 import random
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from vit_ed_tpu_torch.data import samplers, transforms
 from vit_ed_tpu_torch.data.build import build_dataset
 from vit_ed_tpu_torch.data.div2k import DIV2KPatch, Split
 from vit_ed_tpu_torch.metrics import classification as M
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +110,7 @@ def test_two_img_sync_eval_equals_the_jax_package():
 
 def test_build_dataset_repeat_factors(div2k_root):
     args = types.SimpleNamespace(
-        cfg="configs/puzzle/div2k_erosion7_4bin_patch8_64.yaml", opts=None,
+        cfg=str(ROOT / "configs" / "puzzle" / "div2k_erosion7_4bin_patch8_64.yaml"), opts=None,
         data_path=div2k_root)
     config = get_config(args)
     assert config.DATA.DATASET == "div2k" and config.DATA.IMG_SIZE == 64

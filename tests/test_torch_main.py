@@ -28,7 +28,10 @@ from vit_ed_tpu_torch.main import DefaultTrainer, main, parse_option
 from vit_ed_tpu_torch.models.convert import jax_params_to_state_dict, load_jax_params
 from vit_ed_tpu_torch.ops import attention as tattn
 
-CFG = "configs/puzzle/div2k_erosion7_4bin_patch8_64.yaml"
+# anchored to the repository: a test that changes the working directory
+# may run before this file in the same process
+ROOT = Path(__file__).resolve().parent.parent
+CFG = str(ROOT / "configs" / "puzzle" / "div2k_erosion7_4bin_patch8_64.yaml")
 KW = dict(embed_dim=64, num_heads=2, depth=1, c_depth=1, img_size=32,
           patch_size=8, num_classes=4)
 SHRINK = ["MODEL.PJS.EMBED_DIM", "64", "MODEL.PJS.NUM_HEADS", "2",
@@ -75,6 +78,21 @@ def test_logits_match_jax_model(tmp_path, jax_params):
         out = model.eval()(torch.from_numpy(x))
     assert tuple(out.shape) == ref.shape == (3, 4)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_config_path_does_not_depend_on_the_working_directory(tmp_path, monkeypatch,
+                                                              jax_params):
+    """From another working directory (tests/test_entries.py changes it and
+    does not change it back; under ``--dist loadfile`` this file may run
+    after it in the same worker) the config and a trainer still build."""
+    from vit_ed_tpu_torch.config import get_config
+
+    monkeypatch.chdir(tmp_path)
+    config = get_config(types.SimpleNamespace(cfg=CFG, opts=SHRINK))
+    assert config.MODEL.NAME == "div2k_erosion7_4bin_patch8_64"
+    assert config.DATA.DATASET == "div2k" and config.DATA.IMG_SIZE == 32
+    trainer = _trainer(tmp_path, jax_params)
+    assert trainer.model.num_heads == 2 and trainer.config.MODEL.NUM_CLASSES == 4
 
 
 def test_training_forward_on_a_stacked_pair():

@@ -37,8 +37,7 @@
 // No atomics: every sum has a fixed order, so two runs give the same bits.
 // The price is recomputation: 9 tile products per (q tile, key tile) where a
 // single pass would need 5. The TPU kernels' padding of Sq and Sk to 128 is
-// not carried over; ragged tiles are masked (padded query rows get zero
-// statistics, so p = exp(0) * 0 = 0 there).
+// not carried over.
 //
 // Addressing, as in heads_attention.cu: every tensor is a base pointer plus
 // batch, head and row strides in elements with a unit last stride, so q|k|v
@@ -46,16 +45,42 @@
 // one fused gradient of the same layout; the CLS VJP (n_q = 1) writes dq into
 // row 0 only. A q tile never reads or writes past n_q rows.
 //
-// What bounds it on an H100: at the puzzle shapes (B = 128 pairs, 12 heads,
-// S = 65, D = 32) one backward is 10 * 128 * 12 * 65 * 65 * 32 ~ 2.1 GFLOP
-// (~2 us at 989 TFLOP/s) while dq moves ~32 MB and dkv ~38 MB (~9.5 and
-// ~11.4 us at 3.35 TB/s): both are memory-bound, at about the cost of their
-// launches, so launch latency and tile quantisation (65 = two 64-wide tiles)
-// set the time. At B = 64, S = 1025 it is compute-bound (~0.26 ms at 989
-// TFLOP/s dense bf16). Simple first: bf16 on mma.sync m16n8k16, f32 on plain
-// FMA. At D = 128 the dkv kernel's K/V fragments and four accumulators pass
-// the register file and spill; wgmma, TMA and a one-pass design are later
-// work.
+// What bounds it on an H100. At B = 49 pairs, 6 heads, S = 1025, D = 64 (the
+// hisfrag training step) the 9 products are 356 GFLOP, 0.36 ms at the dense
+// bf16 peak of 989 TFLOP/s (mma.sync reaches less), while the bytes (q, k,
+// v, do once, three gradients once) take ~0.02 ms at 3.35 TB/s: it is bound
+// by operations. Three exp2 per logit and ~10 f32 operations around each
+// are another ~0.3 ms at the f32 issue rate. At the puzzle shapes (B = 128,
+// 12 heads, S = 65, D = 32) it is bound by bytes (~10 us) and by launch
+// latency. Measured on an H100 80GB HBM3 at 700 W: dq + dkv 1.59 ms at the
+// hisfrag shape (223 TFLOP/s executed), 0.061 ms at the puzzle's S = 65.
+//
+// The bf16 kernels' design, and why:
+//   - fragments by ldmatrix.x4 (two n-blocks of S / dP per instruction) and
+//     ldmatrix.x4.trans (two n-blocks of dq / dv / dk) from tiles
+//     XOR-swizzled by 16-byte chunks, so that no ldmatrix has a bank
+//     conflict: with 16-bit shared loads per B fragment the load/store unit,
+//     not the tensor cores, sets the pace;
+//   - tiles by cp.async into a ring of kStages buffers in dynamic shared
+//     memory, the next tile's copy issued before the current tile's
+//     products, one barrier per tile: nothing waits on a synchronous copy;
+//   - a ragged last tile computes only its 8-wide groups and 16-deep k-steps
+//     that hold a real key (dq) or query row (dkv), and rows that fit one
+//     block (up to 128 at D <= 64) take one block of as many warps as they
+//     need: S = 65 costs one more warp, not a second block and a masked
+//     second tile;
+//   - registers are capped (kMaxRegs) so that 3 blocks of 4 warps (D = 64)
+//     or 4 (D = 32) share an SM to hide latency. Longer sequences take
+//     4-warp blocks of 64 rows: 8-warp blocks of 128 rows (each staged tile
+//     feeding twice the rows) measured slower on the H100, with one block
+//     per SM at ~240 registers.
+// When all key tiles of a (batch, head) fit in the ring (S <= 128: the whole
+// puzzle path), dq stages K and V once for both passes, in an instantiation
+// of its own chosen at launch: a run-time branch between the two schemes
+// cost the long sequences' dq ~5% at D = 32. The softmax is taken
+// as exp2(s * scale * log2 e - m * log2 e), one FFMA and one ex2.approx.ftz;
+// the statistics keep m in the units of s. The f32 kernels (the tests' type)
+// are plain FMA, one thread quad per row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -284,26 +309,148 @@ heads_bwd_dkv_fma_f32(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernels (fragment layouts and tile helpers:
-// attention_mma.cuh)
+// bf16 tensor-core kernels (fragment layouts, staging and ldmatrix helpers:
+// attention_mma.cuh). A block has blockDim.x / 32 warps of 16 rows each
+// (dq: query rows, dkv: keys; block_warps picks the count at launch); the
+// streamed operand comes in 64-row tiles through a ring of kStages buffers
+// in dynamic shared memory, the copy of a tile issued one tile ahead of its
+// products.
 // ---------------------------------------------------------------------------
 
-// dq, bf16: a warp owns 16 query rows and holds their q and do rows as A
-// fragments for both passes over the keys.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// exp2 on the special function unit alone: results below 2^-126 flush to
+// zero (a probability that small is far below the tolerance of any sum here)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct Bf16Cfg {
+  // warps of a block (16 rows each: query rows in dq, keys in dkv): as many
+  // as the rows when they fit one block, else kLongWarps
+  static constexpr int kMaxWarps = D <= 64 ? 8 : 4;
+  static constexpr int kLongWarps = 4;
+  static constexpr int kN = 64;              // rows of a streamed tile
+  static constexpr int kStages = 2;
+  // registers per thread: 3 blocks of 4 warps per SM at D = 64, 4 at D <= 32
+  // (a few bytes spill at D = 64); D = 128 takes what it needs
+  static constexpr int kMaxRegs = D == 64 ? 168 : (D == 128 ? 255 : 128);
+  static constexpr int kTileBytes = kN * D * 2;
+  // dq: K and V tiles; dkv: Q and dO tiles plus m, 1 / l, delta of their rows
+  static constexpr int kDqStageBytes = 2 * kTileBytes;
+  static constexpr int kDkvStageBytes = 2 * kTileBytes + 3 * kN * 4;
+};
+
+// The tile bodies below take the tile's real rows nk (keys in dq, query rows
+// in dkv) and two compile-time bounds: kRagged (nk < 64: mask and skip what
+// is past nk) and kJ, the 8-row groups the code may touch (8; 2 for a last
+// tile of at most 16 rows, such as the 65th row of S = 65, so that its
+// fragments are neither zeroed nor scanned past the first k-step).
+
+// pass 1 of dq on one key tile: online row max, sum and delta numerator for
+// rows g (i = 0) and g + 8 (i = 1). Only the 8-key groups j < jn (those that
+// hold a real key) are computed; with kRagged, keys >= nk are masked.
+template <int D, bool kRagged, int kJ>
+__device__ __forceinline__ void dq_pass1_tile(const uint32_t (&qa)[D / 16][4],
+                                              const uint32_t (&da)[D / 16][4], uint32_t kt,
+                                              uint32_t vt, int nk, int lane, float c2,
+                                              float scale, float (&mr)[2], float (&off)[2],
+                                              float (&l)[2], float (&n)[2]) {
+  const int jn = kRagged ? (nk + 7) / 8 : 8;
+  const int t = lane & 3;
+  float s[8][4];
+  float dp[8][4];
+  mma_frags_tile_t<D, kJ>(s, qa, kt, jn, lane);
+  mma_frags_tile_t<D, kJ>(dp, da, vt, jn, lane);
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < jn) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (kRagged && j * 8 + 2 * t + (c & 1) >= nk) s[j][c] = -CUDART_INF_F;
+        mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // every key tile holds a real key, so the new maximum is finite
+    mr[i] = fmaxf(mr[i], quad_max(mx[i]));
+    const float o = mr[i] * scale * kLog2e;
+    const float corr = exp2_ftz(off[i] - o);
+    l[i] *= corr;
+    n[i] *= corr;
+    off[i] = o;
+  }
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < jn) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const float e = exp2_ftz(fmaf(s[j][c], c2, -off[i]));
+        l[i] += e;
+        n[i] = fmaf(e, dp[j][c], n[i]);
+      }
+    }
+  }
+}
+
+// pass 2 of dq on one key tile: ds = p (dp - delta) scale, acc += round(ds) K,
+// over the 16-key k-steps that hold a real key
+template <int D, bool kRagged, int kJ>
+__device__ __forceinline__ void dq_pass2_tile(const uint32_t (&qa)[D / 16][4],
+                                              const uint32_t (&da)[D / 16][4], uint32_t kt,
+                                              uint32_t vt, int nk, int lane, float c2,
+                                              float scale, const float (&off)[2],
+                                              const float (&il)[2], const float (&dl)[2],
+                                              float (&acc)[D / 8][4]) {
+  const int jn = kRagged ? (nk + 7) / 8 : 8;
+  const int kn = kRagged ? (nk + 15) / 16 : 4;
+  const int t = lane & 3;
+  float s[8][4];
+  float dp[8][4];
+  mma_frags_tile_t<D, kJ>(s, qa, kt, jn, lane);
+  mma_frags_tile_t<D, kJ>(dp, da, vt, jn, lane);
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < 2 * kn) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        float pv = exp2_ftz(fmaf(s[j][c], c2, -off[i])) * il[i];
+        if (kRagged && j * 8 + 2 * t + (c & 1) >= nk) pv = 0.0f;
+        s[j][c] = pv * (dp[j][c] - dl[i]) * scale;
+      }
+    }
+  }
+  mma_acc_tile<D, kJ / 2>(acc, s, kt, kn, lane);
+}
+
+// dq, bf16: a warp owns 16 query rows and holds their q and do rows as A
+// fragments. Pass 1 walks the key tiles for the row statistics, pass 2 walks
+// them again for dq; both passes run through one ring of K/V tiles (2 n
+// tiles in order), except with kResident (the n tiles fit in the ring: the
+// launch checks): then they are staged once and both passes read them there.
+template <int D, bool kResident>
+__global__ void __maxnreg__(Bf16Cfg<D>::kMaxRegs)
 heads_bwd_dq_mma_bf16(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * (D + 8)];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * (D + 8)];
+  using Cfg = Bf16Cfg<D>;
+  constexpr int kN = Cfg::kN;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int row0 = blockIdx.x * kTile + warp * 16;
+  const int row0 = (blockIdx.x * blockDim.x + tid) / 32 * 16;
   // a warp whose 16 rows lie past the last query row only helps to stage
   const bool warp_live = row0 < p.n_q;
 
@@ -316,134 +463,172 @@ heads_bwd_dq_mma_bf16(const Params p) {
   const __nv_bfloat16* dbase =
       static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_bs + h * p.do_hs;
 
+  const int n_tiles = (p.n_k + kN - 1) / kN;
+  const int last_n = p.n_k - (n_tiles - 1) * kN;  // real keys of the last tile
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto issue = [&](int tile, int slot) {
+    __nv_bfloat16* kt = ring + slot * 2 * kN * D;
+    stage_async<D, kN>(kt, kbase, p.k_rs, tile * kN, p.n_k, tid, blockDim.x);
+    stage_async<D, kN>(kt + kN * D, vbase, p.v_rs, tile * kN, p.n_k, tid, blockDim.x);
+  };
+  // virtual tile v of the 2 n in flight: tile v % n_tiles, slot v % kStages
+  if (kResident) {
+    for (int tile = 0; tile < n_tiles; ++tile) issue(tile, tile);
+    cp_async_commit();
+  } else {
+#pragma unroll
+    for (int v = 0; v < kStages - 1; ++v) {
+      issue(v, v);
+      cp_async_commit();
+    }
+  }
+  // before the first wait: the global loads overlap the copies in flight
   uint32_t qa[D / 16][4];
   uint32_t da[D / 16][4];
-  load_a_rows<D>(qa, qbase, p.q_rs, row0, p.n_q, g, t);
-  load_a_rows<D>(da, dbase, p.do_rs, row0, p.n_q, g, t);
-
-  float s[8][4];
-  float dp[8][4];
-
-  // pass 1: online row max m, sum l and delta numerator n for rows g (0)
-  // and g + 8 (1); m is kept equal across the four lanes of a row
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-  float l0 = 0.0f, l1 = 0.0f, n0 = 0.0f, n1 = 0.0f;
-  for (int k0 = 0; k0 < p.n_k; k0 += kTile) {
-    stage_bf16<D>(ks, kbase, p.k_rs, k0, p.n_k, tid);
-    stage_bf16<D>(vs, vbase, p.v_rs, k0, p.n_k, tid);
-    __syncthreads();
-    if (warp_live) {
-      mma_a_tile_t<D>(s, qa, ks, g, t);
-      mma_a_tile_t<D>(dp, da, vs, g, t);
-      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + j * 8 + 2 * t + (c & 1);
-          const float val = key < p.n_k ? s[j][c] * p.scale : -CUDART_INF_F;
-          s[j][c] = val;
-          if (c < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
-        }
-      }
-      // every key tile holds at least one real key, so the new maxima are finite
-      const float mn0 = fmaxf(m0, quad_max(mx0));
-      const float mn1 = fmaxf(m1, quad_max(mx1));
-      const float c0 = expf(m0 - mn0);
-      const float c1 = expf(m1 - mn1);
-      l0 *= c0; n0 *= c0; m0 = mn0;
-      l1 *= c1; n1 *= c1; m1 = mn1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c < 2) {
-            const float e = expf(s[j][c] - m0);
-            l0 += e;
-            n0 = fmaf(e, dp[j][c], n0);
-          } else {
-            const float e = expf(s[j][c] - m1);
-            l1 += e;
-            n1 = fmaf(e, dp[j][c], n1);
-          }
-        }
-      }
-    }
+  if (warp_live) {
+    load_a_rows<D>(qa, qbase, p.q_rs, row0, p.n_q, g, t);
+    load_a_rows<D>(da, dbase, p.do_rs, row0, p.n_q, g, t);
+  }
+  if (kResident) {
+    cp_async_wait<0>();
     __syncthreads();
   }
-  const float il0 = 1.0f / quad_sum(l0);
-  const float il1 = 1.0f / quad_sum(l1);
-  const float dl0 = quad_sum(n0) * il0;
-  const float dl1 = quad_sum(n1) * il1;
-  if (t == 0) {
-    const int ra = row0 + g;
-    const int rb = row0 + g + 8;
-    if (ra < p.n_q) {
-      stat_ptr(p, 0, b, h)[ra] = m0;
-      stat_ptr(p, 1, b, h)[ra] = il0;
-      stat_ptr(p, 2, b, h)[ra] = dl0;
-    }
-    if (rb < p.n_q) {
-      stat_ptr(p, 0, b, h)[rb] = m1;
-      stat_ptr(p, 1, b, h)[rb] = il1;
-      stat_ptr(p, 2, b, h)[rb] = dl1;
+  auto advance = [&](int v) {  // tile v landed, the slot of v - 1 is free
+    if (kResident) return;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nv = v + kStages - 1;
+    if (nv < 2 * n_tiles) issue(nv % n_tiles, nv % kStages);
+    cp_async_commit();
+  };
+  auto slot_of = [&](int v) {
+    return smem_u32(ring + (kResident ? v % n_tiles : v % kStages) * 2 * kN * D);
+  };
+  const float c2 = p.scale * kLog2e;
+
+  // pass 1; mr is the raw row max of q.k, off = mr * scale * log2 e
+  float mr[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float off[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.0f, 0.0f};
+  float n[2] = {0.0f, 0.0f};
+  for (int v = 0; v < n_tiles; ++v) {
+    advance(v);
+    if (!warp_live) continue;
+    const uint32_t kt = slot_of(v);
+    const uint32_t vt = kt + kN * D * 2;
+    if (v < n_tiles - 1 || last_n == kN)
+      dq_pass1_tile<D, false, 8>(qa, da, kt, vt, kN, lane, c2, p.scale, mr, off, l, n);
+    else if (last_n > 16)
+      dq_pass1_tile<D, true, 8>(qa, da, kt, vt, last_n, lane, c2, p.scale, mr, off, l, n);
+    else
+      dq_pass1_tile<D, true, 2>(qa, da, kt, vt, last_n, lane, c2, p.scale, mr, off, l, n);
+  }
+  float il[2];
+  float dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    il[i] = 1.0f / quad_sum(l[i]);
+    dl[i] = quad_sum(n[i]) * il[i];
+  }
+  if (warp_live && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      if (r < p.n_q) {
+        // the softmax max in the units of s = q.k * scale; pass 2 and the
+        // dkv kernel both take their exp2 offset as m * log2 e from it
+        stat_ptr(p, 0, b, h)[r] = mr[i] * p.scale;
+        stat_ptr(p, 1, b, h)[r] = il[i];
+        stat_ptr(p, 2, b, h)[r] = dl[i];
+      }
     }
   }
 
-  // pass 2: ds = p * (dp - delta) * scale, dq += round(ds) K
+  // pass 2
   float acc[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int nb = 0; nb < D / 8; ++nb)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
-  for (int k0 = 0; k0 < p.n_k; k0 += kTile) {
-    stage_bf16<D>(ks, kbase, p.k_rs, k0, p.n_k, tid);
-    stage_bf16<D>(vs, vbase, p.v_rs, k0, p.n_k, tid);
-    __syncthreads();
-    if (warp_live) {
-      mma_a_tile_t<D>(s, qa, ks, g, t);
-      mma_a_tile_t<D>(dp, da, vs, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + j * 8 + 2 * t + (c & 1);
-          const float mr = c < 2 ? m0 : m1;
-          const float ilr = c < 2 ? il0 : il1;
-          const float dlr = c < 2 ? dl0 : dl1;
-          const float pv = key < p.n_k ? expf(s[j][c] * p.scale - mr) * ilr : 0.0f;
-          s[j][c] = pv * (dp[j][c] - dlr) * p.scale;
-        }
-      }
-      mma_acc_tile<D>(acc, s, ks, g, t);
-    }
-    __syncthreads();
+    for (int c = 0; c < 4; ++c) acc[nb][c] = 0.0f;
+  for (int v = n_tiles; v < 2 * n_tiles; ++v) {
+    advance(v);
+    if (!warp_live) continue;
+    const uint32_t kt = slot_of(v);
+    const uint32_t vt = kt + kN * D * 2;
+    if (v < 2 * n_tiles - 1 || last_n == kN)
+      dq_pass2_tile<D, false, 8>(qa, da, kt, vt, kN, lane, c2, p.scale, off, il, dl, acc);
+    else if (last_n > 16)
+      dq_pass2_tile<D, true, 8>(qa, da, kt, vt, last_n, lane, c2, p.scale, off, il, dl, acc);
+    else
+      dq_pass2_tile<D, true, 2>(qa, da, kt, vt, last_n, lane, c2, p.scale, off, il, dl, acc);
   }
-  __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_bs + h * p.dq_hs;
-  store_rows<D>(obase, p.dq_rs, row0, p.n_q, acc, g, t);
+  if (warp_live) {
+    __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_bs + h * p.dq_hs;
+    store_rows<D>(obase, p.dq_rs, row0, p.n_q, acc, g, t);
+  }
 }
 
-// dkv, bf16: a warp owns 16 keys, holds their K and V rows as A fragments,
-// and walks every query tile in order: S^T = K Q^T and dP^T = V dO^T come out
-// keys x rows, so round(p)^T and round(ds)^T are already the A operands of
-// dv += p^T dO and dk += ds^T Q.
+// dkv on one query tile: S^T = K Q^T and dP^T = V dO^T come out keys x rows,
+// so round(p)^T and round(ds)^T are already the A operands of dv += p^T dO
+// and dk += ds^T Q. Only the 8-row groups with a real query row, and the
+// 16-row k-steps that hold one, are computed; rows past the end carry zero
+// statistics (p = exp2(0) * 0 = 0) and zero q / do rows.
+template <int D, bool kRagged, int kJ>
+__device__ __forceinline__ void dkv_tile(const uint32_t (&ka)[D / 16][4],
+                                         const uint32_t (&va)[D / 16][4], uint32_t qt,
+                                         uint32_t dt, const float* st_m, int nr, int lane,
+                                         float c2, float scale, float (&dk)[D / 8][4],
+                                         float (&dv)[D / 8][4]) {
+  constexpr int kN = Bf16Cfg<D>::kN;
+  const int jn = kRagged ? (nr + 7) / 8 : 8;
+  const int kn = kRagged ? (nr + 15) / 16 : 4;
+  const int t = lane & 3;
+  float st[8][4];
+  float dpt[8][4];
+  mma_frags_tile_t<D, kJ>(st, ka, qt, jn, lane);
+  mma_frags_tile_t<D, kJ>(dpt, va, dt, jn, lane);
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < 2 * kn) {
+      const int r = j * 8 + 2 * t;  // rows r (c = 0, 2) and r + 1 (c = 1, 3)
+      const float2 m = *reinterpret_cast<const float2*>(st_m + r);
+      const float2 il = *reinterpret_cast<const float2*>(st_m + kN + r);
+      const float2 dl = *reinterpret_cast<const float2*>(st_m + 2 * kN + r);
+      const float o[2] = {m.x * kLog2e, m.y * kLog2e};
+      const float ilr[2] = {il.x, il.y};
+      const float dlr[2] = {dl.x, dl.y};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c & 1;
+        const float pv = exp2_ftz(fmaf(st[j][c], c2, -o[i])) * ilr[i];
+        st[j][c] = pv;
+        dpt[j][c] = pv * (dpt[j][c] - dlr[i]) * scale;
+      }
+    }
+  }
+  mma_acc_tile<D, kJ / 2>(dv, st, dt, kn, lane);
+  mma_acc_tile<D, kJ / 2>(dk, dpt, qt, kn, lane);
+}
+
+// dkv, bf16: a warp owns 16 keys and holds their K and V rows as A
+// fragments; the block walks every query tile in order (Q, dO and the
+// statistics dq stored, through the ring) and accumulates dk and dv in f32
+// registers.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __maxnreg__(Bf16Cfg<D>::kMaxRegs)
 heads_bwd_dkv_mma_bf16(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * (D + 8)];
-  __shared__ __align__(16) __nv_bfloat16 dos[kTile * (D + 8)];
-  __shared__ float sm[kTile];
-  __shared__ float sil[kTile];
-  __shared__ float sdl[kTile];
+  using Cfg = Bf16Cfg<D>;
+  constexpr int kN = Cfg::kN;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int key0 = blockIdx.x * kTile + warp * 16;
+  const int key0 = (blockIdx.x * blockDim.x + tid) / 32 * 16;
   // a warp whose 16 keys lie past the last key only helps to stage
   const bool warp_live = key0 < p.n_k;
 
@@ -455,74 +640,120 @@ heads_bwd_dkv_mma_bf16(const Params p) {
       static_cast<const __nv_bfloat16*>(p.v) + b * p.v_bs + h * p.v_hs;
   const __nv_bfloat16* dbase =
       static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_bs + h * p.do_hs;
-  const float* gm = stat_ptr(p, 0, b, h);
-  const float* gil = stat_ptr(p, 1, b, h);
-  const float* gdl = stat_ptr(p, 2, b, h);
+  const float* gstat = stat_ptr(p, 0, b, h);
+  const long long stat_stride = static_cast<long long>(p.batch) * p.heads * p.n_q;
 
+  const int n_tiles = (p.n_q + kN - 1) / kN;
+  const int last_n = p.n_q - (n_tiles - 1) * kN;  // real query rows of the last tile
+  auto stage = [&](int slot) { return smem + slot * Cfg::kDkvStageBytes; };
+  auto issue = [&](int tile) {
+    unsigned char* st = stage(tile % kStages);
+    __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(st);
+    stage_async<D, kN>(qt, qbase, p.q_rs, tile * kN, p.n_q, tid, blockDim.x);
+    stage_async<D, kN>(qt + kN * D, dbase, p.do_rs, tile * kN, p.n_q, tid, blockDim.x);
+    // m, 1 / l, delta of the tile's rows; zeros past the end
+    float* sm = reinterpret_cast<float*>(st + 2 * Cfg::kTileBytes);
+    for (int i = tid; i < 3 * kN; i += blockDim.x) {
+      const int which = i / kN;
+      const int row = tile * kN + i % kN;
+      const bool ok = row < p.n_q;
+      cp_async_4(smem_u32(sm + i), gstat + which * stat_stride + (ok ? row : 0), ok ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int v = 0; v < kStages - 1; ++v) {
+    if (v < n_tiles) issue(v);
+    cp_async_commit();
+  }
   uint32_t ka[D / 16][4];
   uint32_t va[D / 16][4];
-  load_a_rows<D>(ka, kbase, p.k_rs, key0, p.n_k, g, t);
-  load_a_rows<D>(va, vbase, p.v_rs, key0, p.n_k, g, t);
-
+  if (warp_live) {
+    load_a_rows<D>(ka, kbase, p.k_rs, key0, p.n_k, g, t);
+    load_a_rows<D>(va, vbase, p.v_rs, key0, p.n_k, g, t);
+  }
   float dk[D / 8][4];
   float dv[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int nb = 0; nb < D / 8; ++nb) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      dk[n][c] = 0.0f;
-      dv[n][c] = 0.0f;
+      dk[nb][c] = 0.0f;
+      dv[nb][c] = 0.0f;
     }
   }
-  float st[8][4];
-  float dpt[8][4];
+  const float c2 = p.scale * kLog2e;
 
-  for (int q0 = 0; q0 < p.n_q; q0 += kTile) {
-    stage_bf16<D>(qs, qbase, p.q_rs, q0, p.n_q, tid);
-    stage_bf16<D>(dos, dbase, p.do_rs, q0, p.n_q, tid);
-    if (tid < kTile) {
-      // padded query rows: zero statistics give p = exp(0) * 0 = 0
-      const int row = q0 + tid;
-      const bool ok = row < p.n_q;
-      sm[tid] = ok ? gm[row] : 0.0f;
-      sil[tid] = ok ? gil[row] : 0.0f;
-      sdl[tid] = ok ? gdl[row] : 0.0f;
-    }
-    __syncthreads();
-    if (warp_live) {
-      mma_a_tile_t<D>(st, ka, qs, g, t);
-      mma_a_tile_t<D>(dpt, va, dos, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = j * 8 + 2 * t + (c & 1);
-          const int key = key0 + g + (c < 2 ? 0 : 8);
-          const float pv = key < p.n_k ? expf(st[j][c] * p.scale - sm[r]) * sil[r] : 0.0f;
-          st[j][c] = pv;
-          dpt[j][c] = pv * (dpt[j][c] - sdl[r]) * p.scale;
-        }
-      }
-      mma_acc_tile<D>(dv, st, dos, g, t);
-      mma_acc_tile<D>(dk, dpt, qs, g, t);
-    }
-    __syncthreads();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile landed for every thread; the slot of tile - 1 is free
+    if (tile + kStages - 1 < n_tiles) issue(tile + kStages - 1);
+    cp_async_commit();
+    if (!warp_live) continue;
+    unsigned char* st = stage(tile % kStages);
+    const uint32_t qt = smem_u32(st);
+    const uint32_t dt = qt + Cfg::kTileBytes;
+    const float* sm = reinterpret_cast<const float*>(st + 2 * Cfg::kTileBytes);
+    if (tile < n_tiles - 1 || last_n == kN)
+      dkv_tile<D, false, 8>(ka, va, qt, dt, sm, kN, lane, c2, p.scale, dk, dv);
+    else if (last_n > 16)
+      dkv_tile<D, true, 8>(ka, va, qt, dt, sm, last_n, lane, c2, p.scale, dk, dv);
+    else
+      dkv_tile<D, true, 2>(ka, va, qt, dt, sm, last_n, lane, c2, p.scale, dk, dv);
   }
-  __nv_bfloat16* okbase = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_bs + h * p.dk_hs;
-  __nv_bfloat16* ovbase = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_bs + h * p.dv_hs;
-  store_rows<D>(okbase, p.dk_rs, key0, p.n_k, dk, g, t);
-  store_rows<D>(ovbase, p.dv_rs, key0, p.n_k, dv, g, t);
+  if (warp_live) {
+    __nv_bfloat16* okbase = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_bs + h * p.dk_hs;
+    __nv_bfloat16* ovbase = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_bs + h * p.dv_hs;
+    store_rows<D>(okbase, p.dk_rs, key0, p.n_k, dk, g, t);
+    store_rows<D>(ovbase, p.dv_rs, key0, p.n_k, dv, g, t);
+  }
+}
+
+// dynamic shared memory above the default 48 KB must be opted into, per
+// kernel and device; `set_for` remembers the device it was done for
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int& set_for) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (set_for == dev) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) set_for = dev;
+  return static_cast<int>(err);
+}
+
+// warps per block for `rows` query rows (dq) or keys (dkv): one block holds
+// them all when they fit, so a ragged 65th row costs one more warp, not one
+// more block
+template <int D>
+int block_warps(int rows) {
+  using Cfg = Bf16Cfg<D>;
+  return rows <= 16 * Cfg::kMaxWarps ? (rows + 15) / 16 : Cfg::kLongWarps;
+}
+
+template <int D, bool kResident>
+int launch_dq_bf16(const Params& p, cudaStream_t st) {
+  using Cfg = Bf16Cfg<D>;
+  const int bytes = Cfg::kStages * Cfg::kDqStageBytes;
+  static int set_for = -1;
+  if (const int err = allow_smem(heads_bwd_dq_mma_bf16<D, kResident>, bytes, set_for))
+    return err;
+  const int warps = block_warps<D>(p.n_q);
+  const dim3 grid((p.n_q + 16 * warps - 1) / (16 * warps), p.heads, p.batch);
+  heads_bwd_dq_mma_bf16<D, kResident><<<grid, 32 * warps, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const Params& p, int dtype, cudaStream_t st) {
-  const dim3 block(kThreads);
   if (dtype == 1) {
-    const dim3 grid((p.n_q + kTile - 1) / kTile, p.heads, p.batch);
-    heads_bwd_dq_mma_bf16<D><<<grid, block, 0, st>>>(p);
+    // K and V of a (batch, head) fit the ring: stage them once for both passes
+    using Cfg = Bf16Cfg<D>;
+    return p.n_k <= Cfg::kStages * Cfg::kN ? launch_dq_bf16<D, true>(p, st)
+                                           : launch_dq_bf16<D, false>(p, st);
   } else if (dtype == 0) {
     const dim3 grid((p.n_q + kFmaTile - 1) / kFmaTile, p.heads, p.batch);
-    heads_bwd_dq_fma_f32<D><<<grid, block, 0, st>>>(p);
+    heads_bwd_dq_fma_f32<D><<<grid, kThreads, 0, st>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -531,13 +762,17 @@ int launch_dq(const Params& p, int dtype, cudaStream_t st) {
 
 template <int D>
 int launch_dkv(const Params& p, int dtype, cudaStream_t st) {
-  const dim3 block(kThreads);
   if (dtype == 1) {
-    const dim3 grid((p.n_k + kTile - 1) / kTile, p.heads, p.batch);
-    heads_bwd_dkv_mma_bf16<D><<<grid, block, 0, st>>>(p);
+    using Cfg = Bf16Cfg<D>;
+    const int bytes = Cfg::kStages * Cfg::kDkvStageBytes;
+    static int set_for = -1;
+    if (const int err = allow_smem(heads_bwd_dkv_mma_bf16<D>, bytes, set_for)) return err;
+    const int warps = block_warps<D>(p.n_k);
+    const dim3 grid((p.n_k + 16 * warps - 1) / (16 * warps), p.heads, p.batch);
+    heads_bwd_dkv_mma_bf16<D><<<grid, 32 * warps, bytes, st>>>(p);
   } else if (dtype == 0) {
     const dim3 grid((p.n_k + kFmaTile - 1) / kFmaTile, p.heads, p.batch);
-    heads_bwd_dkv_fma_f32<D><<<grid, block, 0, st>>>(p);
+    heads_bwd_dkv_fma_f32<D><<<grid, kThreads, 0, st>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
