@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel times of two trees of this repository on one CUDA card, in turns.
 
-    python3 chip_ab.py <other> [--phases 3,7,11,9]
+    python3 chip_ab.py <other> [--phases 3,4,7,11,9]
 
 <other> is another root of the repository, for example a ``git archive``
 of the parent commit unpacked into a git-ignored directory, or a copy of
@@ -13,6 +13,10 @@ of its own that builds that tree's kernels and runs its own
 - 3, 7, 11: the kernel rows of phases 3 (pair forward), 7 (backward at
   d = 64) and 11 (the 4-D kernels at d = 32), device ms behind the same
   device hold in every tree;
+- 4: the device time of one 64-pair ``score_tokens_row`` chunk of the scan
+  (pjs-S patch16_512, bf16, random weights and images from seed 0) under
+  torch.profiler, in all and for each attention kernel, as phase 4's
+  ``chunk_breakdown`` takes it;
 - 9: the device time of one hisfrag training step (bf16, 16 images -> 49
   pairs, a synthetic corpus from a seed) under torch.profiler, in all and
   for each attention kernel, as phase 9's ``step_breakdown`` takes it.
@@ -27,6 +31,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # chip_smoke.hold_device's 8192^3 bf16 products (~13 ms); set in every tree
@@ -65,6 +70,37 @@ def step_profile(c):
     return out
 
 
+def chunk_profile(c):
+    """{row: ms} of one 64-pair score_tokens_row chunk under the profiler:
+    the device's busy time and each attention kernel's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    config = c.get_config(types.SimpleNamespace(cfg=c.FLAGSHIP_CFG, opts=None))
+    torch.manual_seed(0)
+    model = c.build_model(config, torch.device("cuda")).eval()
+    model.dtype = torch.bfloat16
+    imgs = np.random.default_rng(0).normal(size=(3, 512, 512, 3)).astype(np.float32)
+    with torch.inference_mode():
+        x = torch.from_numpy(imgs).cuda()
+        kv_row = model.context_kv_cache(model.encode(x[:1]))
+        adv = model.prepare_x2_scan(x[1:]).index_select(
+            0, torch.arange(64, device="cuda") % 2)
+        for _ in range(3):
+            model.score_tokens_row(kv_row, adv)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model.score_tokens_row(kv_row, adv)
+            torch.cuda.synchronize()
+    rows = c.device_rows(prof, 3)
+    out = {"chunk device": sum(r[1] for r in rows)}
+    out.update({f"{key[:48]} x{cnt}": t for key, t, cnt in rows
+                if "heads_" in key or "pair_attention" in key})
+    return out
+
+
 def child(phases):
     """Run in the root of the tree to time: one JSON line of its rows."""
     import torch
@@ -85,8 +121,9 @@ def child(phases):
     times = {"3": c.phase_times, "7": c.phase_backward_times, "11": c.phase_heads_times}
     rows = {}
     for phase in phases:
-        if phase == "9":
-            rows.update({f"9:{k}": v for k, v in step_profile(c).items()})
+        if phase in ("4", "9"):
+            profiled = chunk_profile(c) if phase == "4" else step_profile(c)
+            rows.update({f"{phase}:{k}": v for k, v in profiled.items()})
         else:
             rows.update({f"{phase}:{k}": v["ms"] for k, v in times[phase](gen).items()})
     print("AB " + json.dumps(rows))
@@ -95,7 +132,7 @@ def child(phases):
 def main(argv):
     if argv[:1] == ["--child"]:
         return child(argv[1].split(","))
-    phases = "3,7,11,9"
+    phases = "3,4,7,11,9"
     if "--phases" in argv:
         i = argv.index("--phases")
         phases = argv[i + 1]

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import vit_ed_tpu.ops.attention as jattn
+from test_torch_cuda import dominant_last_key
 from vit_ed_tpu_torch.ops import attention as tattn
 
 H, C, B = 2, 128, 3
@@ -71,6 +72,39 @@ def test_wrapper_matches_jax_pallas(wrapper, s, dtype):
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)),
                                atol=TOL[dtype], rtol=0)
+
+
+# max |port - JAX| / max |JAX| at the ragged lengths: f32 summation order
+# only (readings <= 1.2e-6); bf16 at most one bf16 step at the output's max,
+# 2^-7 of it (readings 0: the same rounding points)
+RAGGED_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 17, 65, 129])
+@pytest.mark.parametrize("wrapper", ["qkv", "kv_shared"])
+def test_plain_matches_jax_at_ragged_lengths(wrapper, s, dtype):
+    """``pair_attention_plain`` (the card's yardstick for pair_attention.cu)
+    against the JAX pair kernel through the scan's two wrappers at the
+    lengths the kernel's ragged key tiles and last query tiles serve, with
+    the last key of every (batch, head) dominant (the inputs of the card's
+    forward checks)."""
+    rng = np.random.default_rng(s)
+    raw = {"qkv": rng.normal(size=(B, s, 3 * C)).astype(np.float32),
+           "q": rng.normal(size=(B, s, C)).astype(np.float32),
+           "kv1": rng.normal(size=(1, s, 2 * C)).astype(np.float32)}
+    t = {n: torch.from_numpy(x) for n, x in raw.items()}
+    heads = [tattn._heads(t["qkv"][..., i * C:(i + 1) * C], H) for i in range(3)]
+    dominant_last_key(*heads)
+    dominant_last_key(tattn._heads(t["q"], H), tattn._heads(t["kv1"][..., :C], H),
+                      tattn._heads(t["kv1"][..., C:], H))
+    ref = CALLS[wrapper](jattn, {k: _jax(v, dtype) for k, v in raw.items()},
+                         {"use_pallas": True})
+    out = CALLS[wrapper](tattn, {k: _torch(v, dtype) for k, v in raw.items()}, {})
+    assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == ref.shape
+    ref = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(out.float().numpy() - ref).max() / np.abs(ref).max()
+    assert err <= RAGGED_TOL[dtype], err
 
 
 def test_exp2_clamp_matches_jax():

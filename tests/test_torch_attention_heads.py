@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import vit_ed_tpu.ops.attention as jattn
+from test_torch_cuda import dominant_last_key
 from vit_ed_tpu_torch.ops import attention as tattn
 
 B, H, S, D = 2, 3, 70, 32
@@ -65,6 +66,34 @@ def _assert_close(got, want, dtype, what):
     assert tuple(got.shape) == tuple(want.shape), what
     np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype], rtol=0,
                                err_msg=what)
+
+
+# max |port - JAX| / max |JAX| at the ragged lengths: f32 summation order
+# only (readings <= 2.3e-7); bf16 at most one bf16 step at the output's max,
+# 2^-7 of it (readings 0: the same rounding points)
+RAGGED_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+
+
+def _rel(got, want):
+    return np.abs(_np(got) - _np(want)).max() / np.abs(_np(want)).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 17, 65, 129])
+def test_plain_matches_jax_at_ragged_lengths(s, dtype):
+    """``heads_attention_plain`` (the card's yardstick for heads_attention.cu)
+    against the JAX 4-D kernel (``_pallas_fwd_heads``, interpret mode) at the
+    lengths the kernel's ragged tiles and one-pass / ring instantiations
+    serve, with the last key of every (batch, head) dominant (the inputs of
+    the card's forward checks)."""
+    rng = np.random.default_rng(s)
+    raw = [rng.normal(size=(B, 2, s, D)).astype(np.float32) for _ in range(3)]
+    dominant_last_key(*(torch.from_numpy(x) for x in raw))
+    ref = jax.jit(functools.partial(jattn.fused_attention, use_pallas=True))(
+        *[_jax(x, dtype) for x in raw])
+    out = tattn.fused_attention_heads(*[_torch(x, dtype) for x in raw])
+    assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == ref.shape
+    assert _rel(out, ref) <= RAGGED_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -6,6 +6,8 @@ on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,92 @@ import torch
 from vit_ed_tpu_torch.ops import attention as A
 
 H, C, B = 2, 128, 3
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# a forward output against its plain version: max |out - plain| over max
+# |plain| (as _grad_err for gradients). Between the sound readings and the
+# readings of a kernel that drops the last key or the last query row of a
+# ragged tile (dominant_last_key makes both O(1)); PERF.md has both.
+FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def dominant_last_key(q, k, v):
+    """In place on f32 [..., Sq, D] / [..., Sk, D] views: every q row gets the
+    component 2 along u = (1, ..., 1) / sqrt(D) and the last key is
+    (ln(Sk) + 1) * sqrt(D) / 2 * u, so that its logit q.k / sqrt(D) is ln(Sk)
+    + 1 in every row, a softmax weight of ~0.6 against Sk - 1 unit-normal
+    keys (the pair route's exp2 chain gives the same weights); the last
+    value row is (3, -3, 3, ...). A kernel that drops the last key, or the
+    last query row, is then off by O(1) of the output's max."""
+    d, n_k = q.shape[-1], k.shape[-2]
+    u = torch.full((d,), d ** -0.5)
+    q -= (q @ u)[..., None] * u
+    q += 2 * u
+    k[..., -1, :] = (math.log(n_k) + 1) * d ** 0.5 / 2 * u
+    v[..., -1, :] = 3.0 - 6.0 * (torch.arange(d) % 2)
+
+
+def _reading(what, x, ref):
+    """max |x - ref| / max |ref|: an output's error against its own largest
+    element, in both types (no absolute floor, which would pass a zeroed
+    row or gradient whose elements are all small). Printed, so that a run
+    with -s shows the readings the tolerances are set between."""
+    err = (x.float().cpu() - ref.float().cpu()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-12)
+    print(f"{what} reading {str(x.dtype)[6:]} {tuple(x.shape)} {rel:.3e}")
+    return rel
+
+
+def _fwd_err(out, ref):
+    return _reading("forward", out, ref)
+
+
+def _poison(like, device):
+    """Fill a block of the caching allocator with NaN and free it: the
+    kernel's output, allocated next at the same size, lands in it, so rows
+    the kernel never writes read NaN rather than an earlier call's result."""
+    torch.full(tuple(like.shape), float("nan"), dtype=like.dtype, device=device)
+
+
+def _probed_inputs(seed, sq, sk, dtype, c=C, h=H):
+    """Every wrapper's inputs (self-attention Sq rows of qkv, the cross
+    layouts Sq rows of q against Sk keys), made from a numpy seed with the
+    last key of every (batch, head) dominant (``dominant_last_key``)."""
+    rng = np.random.default_rng(seed)
+    d = c // h
+    shapes = {"qkv": (B, sq, 3 * c), "q": (B, sq, c), "kv": (B, sk, 2 * c),
+              "kv1": (1, sk, 2 * c), "k": (B, sk, c), "v": (B, sk, c),
+              "q4": (B, h, sq, d), "k4": (B, h, sk, d), "v4": (B, h, sk, d),
+              "q3": (B * h, sq, d), "k3": (B * h, sk, d), "v3": (B * h, sk, d)}
+    t = {n: torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+         for n, sh in shapes.items()}
+
+    def heads(name, i):
+        return A._heads(t[name][..., i * c:(i + 1) * c], h)
+
+    q = heads("q", 0)
+    for group in ((heads("qkv", 0), heads("qkv", 1), heads("qkv", 2)),
+                  (q, heads("kv", 0), heads("kv", 1)), (q, heads("kv1", 0), heads("kv1", 1)),
+                  (q, heads("k", 0), heads("v", 0)), (t["q4"], t["k4"], t["v4"]),
+                  (t["q3"], t["k3"], t["v3"])):
+        dominant_last_key(*group)     # q's changes are the same each time
+    return {n: x.to(dtype) for n, x in t.items()}
+
+
+def _check_forward(call, cpu, device, dtype):
+    """call(inputs) on the card twice (bit-equal) against the same call on
+    the CPU (the plain version), each launch into a NaN-filled block."""
+    plain = call(cpu)
+    dev = {n: x.to(device) for n, x in cpu.items()}
+    outs = []
+    with torch.inference_mode():
+        for _ in range(2):
+            _poison(plain, device)
+            outs.append(call(dev))
+        torch.cuda.synchronize()
+    out, again = outs
+    assert out.dtype == dtype and out.shape == plain.shape
+    err = _fwd_err(out, plain)
+    assert torch.equal(out, again)
+    assert err <= FWD_TOL[dtype], err
 
 
 @pytest.fixture
@@ -47,16 +134,10 @@ CALLS = {
 @pytest.mark.parametrize("s", [64, 261])
 @pytest.mark.parametrize("wrapper", sorted(CALLS))
 def test_kernel_matches_plain(card, wrapper, s, dtype):
-    cpu = _inputs(s, s, dtype)
+    cpu = _probed_inputs(s, s, s - 1, dtype)
     before = A.launches[wrapper]
-    with torch.inference_mode():
-        out = CALLS[wrapper]({n: t.to(card) for n, t in cpu.items()})
-        torch.cuda.synchronize()
-    assert A.launches[wrapper] == before + 1
-    plain = CALLS[wrapper](cpu)
-    assert out.dtype == dtype and out.shape == plain.shape
-    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().numpy(),
-                               atol=TOL[dtype], rtol=TOL[dtype])
+    _check_forward(CALLS[wrapper], cpu, card, dtype)
+    assert A.launches[wrapper] == before + 2
 
 
 @pytest.mark.cuda
@@ -101,14 +182,8 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _grad_err(g, r):
-    """max |g - r| / max |r|: a gradient's error against its own largest
-    element, in both types (no absolute floor, which would pass a zero
-    gradient whose elements are all small). Printed, so that a run with -s
-    shows the readings the tolerance is set between."""
-    err = (g.float().cpu() - r.float().cpu()).abs().max().item()
-    rel = err / max(r.float().abs().max().item(), 1e-12)
-    print(f"grad reading {str(g.dtype)[6:]} {tuple(g.shape)} {rel:.3e}")
-    return rel
+    return _reading("grad", g, r)
+
 VJPS = {"qkv": ("qkv",), "qkv_cls": ("qkv",), "kv": ("q", "kv"),
         "packed": ("q", "k", "v")}
 
@@ -223,16 +298,10 @@ def test_heads_kernel_matches_plain(card, wrapper, s, dtype):
     """Every wrapper at head_dim 32 on the card (heads_attention.cu) against
     the same call on the CPU (``heads_attention_plain``); S = 64 is the
     puzzle encoder's self-attention (no CLS token, one full tile)."""
-    cpu = _heads_inputs(s, s, dtype)
+    cpu = _probed_inputs(s, s, s - 1, dtype, c=HC, h=HH)
     before = A.launches["heads_" + wrapper]
-    with torch.inference_mode():
-        out = HEADS_CALLS[wrapper]({n: t.to(card) for n, t in cpu.items()})
-        torch.cuda.synchronize()
-    assert A.launches["heads_" + wrapper] == before + 1
-    plain = HEADS_CALLS[wrapper](cpu)
-    assert out.dtype == dtype and out.shape == plain.shape
-    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().numpy(),
-                               atol=TOL[dtype], rtol=TOL[dtype])
+    _check_forward(HEADS_CALLS[wrapper], cpu, card, dtype)
+    assert A.launches["heads_" + wrapper] == before + 2
 
 
 @pytest.mark.cuda
@@ -296,7 +365,7 @@ def test_other_head_dims_match_plain(card, d, dtype):
     """head_dim 16, 64 and 128 of the 4-D kernels, forward and the three
     gradients, on [B, H, S, D] and through the packed qkv wrapper (d = 64
     with C = 192 takes the 4-D route: C % 128 != 0)."""
-    cpu = _heads_inputs(d, 70, dtype, c=3 * d, h=3)
+    cpu = _probed_inputs(d, 70, 69, dtype, c=3 * d, h=3)
     dev = {n: t.to(card) for n, t in cpu.items()}
     for names, call in ((("q4", "k4", "v4"), lambda *a: A.fused_attention(*a)),
                         (("qkv",), lambda x: A.fused_attention_packed_qkv(x, 3))):
@@ -315,8 +384,7 @@ def test_other_head_dims_match_plain(card, d, dtype):
         assert sum(A.launches.values()) == sum(before.values()) + 6
         assert all(A.launches[k] == before[k] for k in before if not k.startswith("heads_"))
         ref_out, ref = run(cpu)
-        np.testing.assert_allclose(out.float().cpu().numpy(), ref_out.float().numpy(),
-                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert _fwd_err(out, ref_out) <= FWD_TOL[dtype]
         _assert_grads_close(got, again, ref, dtype)
 
 
@@ -457,3 +525,102 @@ def test_backward_kernels_through_layout_views(card, layout, s, d, dtype):
     got = _bwd_kernels(name, q, k, v, do, scale, grads)
     again = _bwd_kernels(name, q, k, v, do, scale, grads)
     _assert_bwd_matches(got, again, q, k, v, do, scale, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernels at ragged lengths (the last key of every (batch, head)
+# dominant): heads_attention.cu's one-pass instantiations (Sk <= 64: one
+# resident key tile, <= 128: two) and its ring (Sk > 128), and
+# pair_attention.cu's ragged key tiles and last query tiles
+# ---------------------------------------------------------------------------
+
+FWD_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1025]
+
+
+def _probed_bhsd(seed, sq, sk, d, dtype, b=2, h=2):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32))
+               for n in (sq, sk, sk))
+    dominant_last_key(q, k, v)
+    return {"q4": q.to(dtype), "k4": k.to(dtype), "v4": v.to(dtype)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sk", FWD_LENGTHS)
+@pytest.mark.parametrize("sq", FWD_LENGTHS)
+def test_heads_forward_at_ragged_lengths(card, sq, sk, d, dtype):
+    """The 4-D forward on contiguous [B, H, S, D] (``fused_attention_heads``)
+    for every pair of query and key counts around the 16-row warps, the
+    64-key tiles and the 128-key limit of the one-pass scheme."""
+    cpu = _probed_bhsd(sq * 7919 + sk * 31 + d, sq, sk, d, dtype)
+    _check_forward(HEADS_CALLS["bhsd_eval"], cpu, card, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [1, 17, 65, 129, 1025])
+@pytest.mark.parametrize("wrapper", sorted(HEADS_CALLS))
+def test_heads_forward_through_layout_views(card, wrapper, s, d, dtype):
+    """Every wrapper of the 4-D route at S query rows and S keys: column
+    slices of a fused qkv / kv projection and its CLS row, a batch-1 kv read
+    with batch stride 0, separate tensors, [B, H, S, D] and [B*H, S, D]
+    (d = 64 at C = 192 takes the 4-D route: C % 128 != 0)."""
+    cpu = _probed_inputs(100 * s + d, s, s, dtype, c=3 * d, h=HH)
+    before = A.launches["heads_" + wrapper]
+    _check_forward(HEADS_CALLS[wrapper], cpu, card, dtype)
+    assert A.launches["heads_" + wrapper] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 17, 65, 129, 1025])
+@pytest.mark.parametrize("wrapper", sorted(CALLS))
+def test_pair_forward_at_ragged_lengths(card, wrapper, s, dtype):
+    """Every pair-route wrapper at S query rows and S keys: a key tile of
+    1 or 17 real keys, and (S = 1025) a last query tile of one row."""
+    cpu = _probed_inputs(s + 7, s, s, dtype)
+    before = A.launches[wrapper]
+    _check_forward(CALLS[wrapper], cpu, card, dtype)
+    assert A.launches[wrapper] == before + 2
+
+
+def _contract_runs(a, h):
+    """(shared kv, its materialised broadcast, CLS, full self-attention),
+    twice."""
+    with torch.inference_mode():
+        runs = [(A.fused_attention_packed_kv_shared(a["q"], a["kv1"], h),
+                 A.fused_attention_packed_kv(
+                     a["q"], a["kv1"].expand(B, -1, -1).contiguous(), h),
+                 A.fused_attention_packed_qkv_cls(a["qkv"], h),
+                 A.fused_attention_packed_qkv(a["qkv"], h)) for _ in range(2)]
+        torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    return runs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [17, 64, 65, 128, 129, 1025])
+def test_heads_cls_and_shared_are_bit_exact_at_every_scheme(card, s, d, dtype):
+    """CLS == row 0 of the full launch and a shared kv == its broadcast, bit
+    for bit, and each launch == its rerun: at one resident key tile (S <=
+    64), two (S <= 128) and the ring (S > 128)."""
+    a = {n: x.to(card) for n, x in _probed_inputs(s, s, s, dtype, c=3 * d, h=HH).items()}
+    shared, bcast, cls, full = _contract_runs(a, HH)
+    assert torch.equal(shared, bcast)
+    assert torch.equal(cls, full[:, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [17, 65, 1025])
+def test_pair_cls_and_shared_are_bit_exact_at_ragged_lengths(card, s, dtype):
+    a = {n: x.to(card) for n, x in _probed_inputs(s, s, s, dtype).items()}
+    shared, bcast, cls, full = _contract_runs(a, H)
+    assert torch.equal(shared, bcast)
+    assert torch.equal(cls, full[:, :1])

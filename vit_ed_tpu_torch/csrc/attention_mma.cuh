@@ -1,18 +1,20 @@
 // Device helpers shared by the attention kernels of this directory
 // (pair_attention.cu, heads_attention.cu, heads_attention_bwd.cu): the bf16
 // tensor-core product mma.sync.m16n8k16, bf16 packing, reductions over the
-// four lanes that share a fragment row, the 64-row tiles the forward kernels
-// stage in shared memory (blocks of kThreads threads: 4 warps x 16 rows),
-// and the asynchronous staging (cp.async into XOR-swizzled tiles) and
-// ldmatrix fragment loads of the bf16 backward kernels.
+// four lanes that share a fragment row, the exp2 of the softmaxes, the
+// asynchronous staging (cp.async into XOR-swizzled tiles of kTile rows) and
+// the ldmatrix fragment loads that all bf16 kernels use, and the host-side
+// opt-in to more than 48 KB of dynamic shared memory. The f32 kernels run in
+// blocks of kThreads threads.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;  // rows of a staged tile, and rows per block
+constexpr int kThreads = 128;  // threads of an f32 kernel's block
+constexpr int kTile = 64;      // rows of a staged bf16 tile
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -25,7 +27,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor cores: mma.sync.m16n8k16, 4 warps x 16 rows.
+// bf16 tensor cores: mma.sync.m16n8k16, 16 rows a warp.
 // Fragment layouts (PTX ISA, m16n8k16 .bf16): g = lane / 4, t = lane % 4;
 //   A (16x16, row): a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..) a3 (g+8, 2t+8..)
 //   B (16x8, col):  b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
@@ -47,29 +49,18 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// exp2 on the special function unit alone: results below 2^-126 flush to
+// zero (a probability that small is far below the tolerance of any sum here)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows r0.. of a strided [n_total, D] bf16 matrix into a [64][D + 8] tile
-// (the pitch keeps the B-fragment loads free of bank conflicts), 16-byte
-// chunks; rows past the end are zeros
-template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                           long long rs, int r0, int n_total, int tid) {
-  // unsigned on purpose: kChunks is a power of two, and only unsigned
-  // division by it is a plain shift; with signed arithmetic here the
-  // backward kernels at head_dim 64 ran measurably slower
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < kTile * kChunks; i += kThreads) {
-    const int r = static_cast<unsigned>(i) / kChunks;
-    const int c8 = (static_cast<unsigned>(i) % kChunks) * 8;
-    const int row = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_total) val = *reinterpret_cast<const uint4*>(base + row * rs + c8);
-    *reinterpret_cast<uint4*>(&dst[r * (D + 8) + c8]) = val;
-  }
+// a barrier of the block's first n_threads threads (a multiple of 32): the
+// warps of a block past the last row return at once and never arrive
+__device__ __forceinline__ void bar_sync(int n_threads) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(n_threads) : "memory");
 }
 
 // 16 rows (row0 + g, row0 + g + 8) x D dims of a strided bf16 matrix as the
@@ -108,7 +99,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long rs, in
 }
 
 // ---------------------------------------------------------------------------
-// Asynchronous staging and ldmatrix fragments (the bf16 backward kernels).
+// Asynchronous staging and ldmatrix fragments (every bf16 kernel).
 // A staged tile is [rows][D] bf16 in shared memory, XOR-swizzled by 16-byte
 // chunks: the eight rows an ldmatrix 8x8 matrix reads (eight consecutive
 // rows, one chunk column) land in eight different 16-byte bank groups, with
@@ -153,7 +144,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // rows r0 .. r0 + kRows - 1 of a strided [n_total, D] bf16 matrix into a
 // swizzled tile, by the block's n_threads threads; rows past the end are
-// zero-filled. Unsigned index arithmetic on purpose (see stage_bf16).
+// zero-filled. Unsigned on purpose: kChunks is a power of two, and only
+// unsigned division by it is a plain shift; with signed arithmetic here the
+// backward kernels at head_dim 64 ran measurably slower.
 template <int D, int kRows>
 __device__ __forceinline__ void stage_async(__nv_bfloat16* dst, const __nv_bfloat16* base,
                                             long long rs, int r0, int n_total, int tid,
@@ -209,16 +202,31 @@ __device__ __forceinline__ void mma_frags_tile_t(float (&out)[8][4],
   }
 }
 
-// acc (16 x D) += round_bf16(x) (16 x 64 in the accumulator layout, re-used
-// as the A operand) * tile (swizzled [64][D]) over the 16-row k-steps
-// kk < kn (kn <= kK): acc[., n] += sum_r x[., r] * tile[r][n].
-// ldmatrix.x4.trans gives the B fragments of two 8-wide n-blocks at one k-step.
-template <int D, int kK = 4>
-__device__ __forceinline__ void mma_acc_tile(float (&acc)[D / 8][4], const float (&x)[8][4],
-                                             uint32_t tile, int kn, int lane) {
+// acc (16 x D) += A (16 x 16, bf16 fragments in registers) * rows 16 kk ..
+// 16 kk + 15 of a swizzled [64][D] tile at shared address `tile`: one k-step
+// of the accumulate products. ldmatrix.x4.trans gives the B fragments of two
+// 8-wide n-blocks.
+template <int D>
+__device__ __forceinline__ void mma_acc_kstep(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                              uint32_t tile, int kk, int lane) {
   const int mi = lane >> 3;
   const int lr = (mi & 1) * 8 + (lane & 7);
   const int lc = mi >> 1;
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    ldsm_x4_t(b, tile + 2 * swz<D>(16 * kk + lr, 2 * np + lc));
+    mma_16816(acc[2 * np], a, b[0], b[1]);
+    mma_16816(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// acc (16 x D) += round_bf16(x) (16 x 64 in the accumulator layout, re-used
+// as the A operand) * tile (swizzled [64][D]) over the 16-row k-steps
+// kk < kn (kn <= kK): acc[., n] += sum_r x[., r] * tile[r][n].
+template <int D, int kK = 4>
+__device__ __forceinline__ void mma_acc_tile(float (&acc)[D / 8][4], const float (&x)[8][4],
+                                             uint32_t tile, int kn, int lane) {
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk) {
     if (kk < kn) {
@@ -226,13 +234,21 @@ __device__ __forceinline__ void mma_acc_tile(float (&acc)[D / 8][4], const float
           pack_f32(x[2 * kk][0], x[2 * kk][1]), pack_f32(x[2 * kk][2], x[2 * kk][3]),
           pack_f32(x[2 * kk + 1][0], x[2 * kk + 1][1]),
           pack_f32(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, tile + 2 * swz<D>(16 * kk + lr, 2 * np + lc));
-        mma_16816(acc[2 * np], a, b[0], b[1]);
-        mma_16816(acc[2 * np + 1], a, b[2], b[3]);
-      }
+      mma_acc_kstep<D>(acc, a, tile, kk, lane);
     }
   }
+}
+
+// dynamic shared memory above the default 48 KB must be opted into, per
+// kernel and device; `set_for` remembers the device it was done for
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int& set_for) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (set_for == dev) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) set_for = dev;
+  return static_cast<int>(err);
 }

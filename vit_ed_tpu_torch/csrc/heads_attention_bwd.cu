@@ -317,16 +317,6 @@ heads_bwd_dkv_fma_f32(const Params p) {
 // products.
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// exp2 on the special function unit alone: results below 2^-126 flush to
-// zero (a probability that small is far below the tolerance of any sum here)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 struct Bf16Cfg {
   // warps of a block (16 rows each: query rows in dq, keys in dkv): as many
@@ -706,20 +696,6 @@ heads_bwd_dkv_mma_bf16(const Params p) {
     store_rows<D>(okbase, p.dk_rs, key0, p.n_k, dk, g, t);
     store_rows<D>(ovbase, p.dv_rs, key0, p.n_k, dv, g, t);
   }
-}
-
-// dynamic shared memory above the default 48 KB must be opted into, per
-// kernel and device; `set_for` remembers the device it was done for
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, int& set_for) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (set_for == dev) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) set_for = dev;
-  return static_cast<int>(err);
 }
 
 // warps per block for `rows` query rows (dq) or keys (dkv): one block holds

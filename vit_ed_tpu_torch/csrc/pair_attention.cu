@@ -33,15 +33,28 @@
 // Sq = 1 (Sk = 1024 each time), and the CLS wrapper once. The CLS launch is
 // memory-bound: it reads ~100 MB of K/V, ~30 us at 3.35 TB/s.
 //
-// Design (simple first, fast later): bf16 runs on the tensor cores through
-// mma.sync m16n8k16 (f32 accumulate). A block of 4 warps takes 64 query
-// rows of one (batch, head); each warp holds its 16 rows of qs as A
-// fragments in registers for the whole key loop. K/V tiles of 64 keys are
-// staged through shared memory with 16-byte loads; S = qs K^T comes out of
-// 32 mma per warp in the accumulator layout, which is re-used directly as
-// the A operand of P V (e rounded to bf16 packs two keys per register).
-// float32 (the tests' type) runs on plain FMA. wgmma, TMA pipelines and a
-// shared-kv tile kept resident across pairs are later work.
+// Design: bf16 runs on the tensor cores through mma.sync m16n8k16 (f32
+// accumulate), the backward's recipe (heads_attention_bwd.cu). A block of
+// 8 warps takes 128 query rows of one (batch, head) (4 warps and 64 rows
+// for a launch of at most 64 rows, the CLS row); each warp holds its 16
+// rows of qs as A fragments in registers for the whole key loop. K and V
+// tiles of 64 keys come by cp.async into a ring of three XOR-swizzled
+// slots, the copies of the next two tiles in flight during the current
+// tile's products, one barrier per tile. S = qs K^T comes from ldmatrix.x4 B fragments, e V from
+// ldmatrix.x4.trans ones, with the accumulator layout of S re-used as the A
+// operand (e rounded to bf16 packs two keys per register). A ragged last key
+// tile multiplies only its groups and k-steps that hold a real key (a tail
+// of at most 16 keys has its own instantiation); the last query tile keeps
+// only the warps that hold a real row (S = 1025: one of eight). Per logit the
+// chain costs a min, one ex2.approx.ftz and half a bf16x2 pack: e stays
+// packed as the A operand, and its row sums come from one more mma per
+// k-step against a column of ones, not from f32 adds. float32 (the tests'
+// type) runs on plain FMA.
+//
+// Measured on an H100 80GB HBM3 at 700 W (B = 64, S = 1025, bf16): qkv 0.48
+// ms (~216 TFLOP/s useful, 22% of the operations bound), kv_shared 0.46,
+// CLS 0.043 (71% of its bytes bound). Next: wgmma, and the shared-kv tile
+// kept resident across several pairs of a chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +66,7 @@ namespace {
 
 constexpr int kHeadDim = 64;
 constexpr float kExp2Clamp = 80.0f;  // _EXP2_CLAMP of the TPU kernel
-constexpr int kRows = 64;             // query rows per block (both kernels)
+constexpr int kRows = 64;             // query rows per block of the f32 kernel
 
 struct Params {
   const void* q;
@@ -144,26 +157,80 @@ pair_attention_fma_f32(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel: mma.sync.m16n8k16, 4 warps x 16 query rows
-// (fragment layouts and packing: attention_mma.cuh)
+// bf16 tensor-core kernel (fragment layouts, staging and ldmatrix helpers:
+// attention_mma.cuh): kW warps x 16 query rows per block, each warp holding
+// its rows of qs as A fragments; K and V tiles of 64 keys come by cp.async
+// through a ring of kStages slots, kStages - 1 tiles ahead of the products.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaKeys = 64;
-constexpr int kLd = kHeadDim + 8;  // smem row pitch (144 B): conflict-free B loads
+// three slots (48 KB): the CLS launch (one warp a block, bound by bytes)
+// keeps two tiles in flight; the long launches are no faster with it
+constexpr int kStages = 3;
+constexpr int kTileBytes = kTile * kHeadDim * 2;   // 8 KB; a slot: K, then V
+// an SM holds 2 blocks of 8 warps or 4 of 4
+constexpr int kMaxRegs = 128;
 
-__global__ void __launch_bounds__(kThreads)
-pair_attention_mma_bf16(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaKeys * kLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaKeys * kLd];
+// bf16 1.0 in both halves: the B fragment of a column of ones
+constexpr uint32_t kOnes = 0x3F803F80u;
+
+// one key tile with nk real keys: e = round_bf16(exp2(min(qs.k, 80))), packed
+// two keys a register as the A operand of acc += e V and of den += e 1 (the
+// rows' sums of the rounded e, in f32 on the tensor cores: den[0] and den[1]
+// hold row g's, den[2] and den[3] row g + 8's). kRagged (nk < 64) masks keys
+// >= nk; kJ bounds the 8-key groups touched (2 for a last tile of at most 16
+// keys); only the groups j < jn with a real key are multiplied, and only the
+// 16-key k-steps kk < kn of e V.
+template <bool kRagged, int kJ>
+__device__ __forceinline__ void pair_tile(const uint32_t (&qa)[kHeadDim / 16][4],
+                                          uint32_t kt, uint32_t vt, int nk, int lane,
+                                          float (&acc)[kHeadDim / 8][4], float (&den)[4]) {
+  const int jn = kRagged ? (nk + 7) / 8 : 8;
+  const int kn = kRagged ? (nk + 15) / 16 : 4;
+  const int t = lane & 3;
+  float s[8][4];
+  mma_frags_tile_t<kHeadDim, kJ>(s, qa, kt, jn, lane);
+#pragma unroll
+  for (int kk = 0; kk < kJ / 2; ++kk) {
+    if (kk < kn) {
+      // A fragment: a[2 h + r] holds group 2 kk + h, row g + 8 r, keys 2t, 2t + 1
+      uint32_t a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * kk + (i >> 1);
+        const int c = 2 * (i & 1);
+        float e0 = exp2_ftz(fminf(s[j][c], kExp2Clamp));
+        float e1 = exp2_ftz(fminf(s[j][c + 1], kExp2Clamp));
+        if (kRagged) {
+          const int key = j * 8 + 2 * t;
+          if (key >= nk) e0 = 0.0f;
+          if (key + 1 >= nk) e1 = 0.0f;
+        }
+        a[i] = pack_f32(e0, e1);
+      }
+      mma_acc_kstep<kHeadDim>(acc, a, vt, kk, lane);
+      mma_16816(den, a, kOnes, kOnes);
+    }
+  }
+}
+
+// kW warps, 16 query rows each
+template <int kW>
+__global__ void __maxnreg__(kMaxRegs) pair_attention_mma_bf16(const Params p) {
+  __shared__ __align__(128) __nv_bfloat16 ring[kStages * 2 * kTile * kHeadDim];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int row0 = blockIdx.x * kRows + warp * 16;
+  const int block_row0 = blockIdx.x * 16 * kW;
+  const int row0 = block_row0 + (tid >> 5) * 16;
+  // the warps of the last query tile past its last row (S = 1025: seven of
+  // the 9th tile's eight) leave at once; the others stage the tiles alone
+  // and synchronise among themselves
+  if (row0 >= p.n_q) return;
+  const int n_threads = min(kW * 32, (p.n_q - block_row0 + 15) / 16 * 32);
 
   const __nv_bfloat16* qbase =
       static_cast<const __nv_bfloat16*>(p.q) + b * p.q_bs + p.q_col + h * kHeadDim;
@@ -172,106 +239,69 @@ pair_attention_mma_bf16(const Params p) {
   const __nv_bfloat16* vbase =
       static_cast<const __nv_bfloat16*>(p.v) + b * p.v_bs + p.v_col + h * kHeadDim;
 
-  // qs = round_bf16(q * scale * log2 e) as A fragments, 4 k-steps of 16 dims
-  uint32_t qa[4][4];
+  const int n_tiles = (p.n_k + kTile - 1) / kTile;
+  const int last_n = p.n_k - (n_tiles - 1) * kTile;  // real keys of the last tile
+  auto issue = [&](int tile) {
+    __nv_bfloat16* kt = ring + (tile % kStages) * 2 * kTile * kHeadDim;
+    stage_async<kHeadDim, kTile>(kt, kbase, p.k_rs, tile * kTile, p.n_k, tid, n_threads);
+    stage_async<kHeadDim, kTile>(kt + kTile * kHeadDim, vbase, p.v_rs, tile * kTile, p.n_k,
+                                 tid, n_threads);
+  };
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int v = 0; v < kStages - 1; ++v) {
+    if (v < n_tiles) issue(v);
+    cp_async_commit();
+  }
+
+  // before the first wait: qs = round_bf16(q * scale * log2 e) as A
+  // fragments, 4 k-steps of 16 dims, rows past the end zero
+  uint32_t qa[kHeadDim / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + g + 8 * (i & 1);
       const int col = kk * 16 + 2 * t + 8 * (i >> 1);
       float x0 = 0.0f, x1 = 0.0f;
       if (row < p.n_q) {
-        const __nv_bfloat16* src = qbase + row * p.q_rs + col;
-        x0 = __bfloat162float(src[0]) * p.scale_log2e;
-        x1 = __bfloat162float(src[1]) * p.scale_log2e;
+        const __nv_bfloat162 x =
+            *reinterpret_cast<const __nv_bfloat162*>(qbase + row * p.q_rs + col);
+        x0 = __low2float(x) * p.scale_log2e;
+        x1 = __high2float(x) * p.scale_log2e;
       }
       qa[kk][i] = pack_f32(x0, x1);
     }
   }
 
-  float acc[8][4];
+  float acc[kHeadDim / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kHeadDim / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
-  float den0 = 0.0f;  // rows g and g + 8, this thread's keys only
-  float den1 = 0.0f;
+  float den[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (int k0 = 0; k0 < p.n_k; k0 += kMmaKeys) {
-    // stage the K and V tiles: 64 keys x 64 dims, 16-byte chunks
-    for (int i = tid; i < kMmaKeys * (kHeadDim / 8); i += kThreads) {
-      const int kr = i >> 3;
-      const int c8 = (i & 7) * 8;
-      const int key = k0 + kr;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < p.n_k) {
-        kv = *reinterpret_cast<const uint4*>(kbase + key * p.k_rs + c8);
-        vv = *reinterpret_cast<const uint4*>(vbase + key * p.v_rs + c8);
-      }
-      *reinterpret_cast<uint4*>(&ks[kr * kLd + c8]) = kv;
-      *reinterpret_cast<uint4*>(&vs[kr * kLd + c8]) = vv;
-    }
-    __syncthreads();
-
-    // S = qs K^T for 16 rows x 64 keys: 8 key tiles of 8
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kp = &ks[(j * 8 + g) * kLd + kk * 16 + 2 * t];
-        mma_16816(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                  *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    // e = round_bf16(exp2(min(l, 80))); keys past the end give 0
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = k0 + j * 8 + 2 * t + (c & 1);
-        const float e = key < p.n_k
-            ? __bfloat162float(__float2bfloat16_rn(exp2f(fminf(s[j][c], kExp2Clamp))))
-            : 0.0f;
-        s[j][c] = e;
-        if (c < 2) den0 += e; else den1 += e;
-      }
-    }
-
-    // out += e V: the S accumulators of key tiles 2kk, 2kk+1 are the
-    // A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_f32(s[2 * kk][0], s[2 * kk][1]), pack_f32(s[2 * kk][2], s[2 * kk][3]),
-          pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* vp = &vs[(kk * 16 + 2 * t) * kLd + n * 8 + g];
-        mma_16816(acc[n], pa, pack_bf16(vp[0], vp[kLd]),
-                  pack_bf16(vp[8 * kLd], vp[9 * kLd]));
-      }
-    }
-    __syncthreads();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    bar_sync(n_threads);  // tile landed for every thread; the slot of tile - 1 is free
+    if (tile + kStages - 1 < n_tiles) issue(tile + kStages - 1);
+    cp_async_commit();
+    const uint32_t kt = smem_u32(ring + (tile % kStages) * 2 * kTile * kHeadDim);
+    const uint32_t vt = kt + kTileBytes;
+    if (tile < n_tiles - 1 || last_n == kTile)
+      pair_tile<false, 8>(qa, kt, vt, kTile, lane, acc, den);
+    else if (last_n > 16)
+      pair_tile<true, 8>(qa, kt, vt, last_n, lane, acc, den);
+    else
+      pair_tile<true, 2>(qa, kt, vt, last_n, lane, acc, den);
   }
 
-  // the four lanes of a row (same g) hold disjoint key subsets
-  den0 += __shfl_xor_sync(0xffffffffu, den0, 1);
-  den0 += __shfl_xor_sync(0xffffffffu, den0, 2);
-  den1 += __shfl_xor_sync(0xffffffffu, den1, 1);
-  den1 += __shfl_xor_sync(0xffffffffu, den1, 2);
-
+  const float den0 = den[0];
+  const float den1 = den[2];
   __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.o) + b * p.o_bs + h * kHeadDim;
   const int ra = row0 + g;
   const int rb = row0 + g + 8;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < kHeadDim / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (ra < p.n_q)
       *reinterpret_cast<uint32_t*>(obase + ra * p.o_rs + col) =
@@ -301,13 +331,21 @@ extern "C" int pair_attention_forward(
   p.n_q = n_q_rows; p.n_k = n_keys;
   p.scale_log2e = scale_log2e;
 
-  const dim3 grid((n_q_rows + kRows - 1) / kRows, num_heads, batch);
-  const dim3 block(kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    pair_attention_mma_bf16<<<grid, block, 0, st>>>(p);
+    // 8 warps share each staged tile among 128 rows; a launch of at most 64
+    // rows (the CLS row: one live warp a block, bound by bytes) takes 4-warp
+    // blocks, twice as many of which fit an SM
+    if (n_q_rows <= 64) {
+      const dim3 grid((n_q_rows + 63) / 64, num_heads, batch);
+      pair_attention_mma_bf16<4><<<grid, 4 * 32, 0, st>>>(p);
+    } else {
+      const dim3 grid((n_q_rows + 127) / 128, num_heads, batch);
+      pair_attention_mma_bf16<8><<<grid, 8 * 32, 0, st>>>(p);
+    }
   } else if (dtype == 0) {
-    pair_attention_fma_f32<<<grid, block, 0, st>>>(p);
+    const dim3 grid((n_q_rows + kRows - 1) / kRows, num_heads, batch);
+    pair_attention_fma_f32<<<grid, kThreads, 0, st>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
