@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel times of two trees of this repository on one CUDA card, in turns.
 
-    python3 chip_ab.py <other> [--phases 3,4,7,11,9]
+    python3 chip_ab.py <other> [--phases 3,4,7,11,9,5,9w,13w]
 
 <other> is another root of the repository, for example a ``git archive``
 of the parent commit unpacked into a git-ignored directory, or a copy of
@@ -19,7 +19,12 @@ of its own that builds that tree's kernels and runs its own
   ``chunk_breakdown`` takes it;
 - 9: the device time of one hisfrag training step (bf16, 16 images -> 49
   pairs, a synthetic corpus from a seed) under torch.profiler, in all and
-  for each attention kernel, as phase 9's ``step_breakdown`` takes it.
+  for each attention kernel, as phase 9's ``step_breakdown`` takes it;
+- 5, 9w, 13w (host clock, end to end): the scan's pairs/s (phase 5:
+  ``hisfrag --mode test`` on its 64 JPEGs), and for the two training paths
+  (phase 9: hisfrag, 16 images -> 49 pairs; phase 13: DIV2K, 128 pairs)
+  the median step with the loader running, trained pairs/s and the host
+  milliseconds to make one training item on one thread (16 items).
 
 Prints the card, then every row's four times and other / tree over the
 means of the two runs of each; each process's whole output goes to
@@ -101,6 +106,75 @@ def chunk_profile(c):
     return out
 
 
+def scan_rate(c):
+    """{row: value} of phase 5's scan: pairs/s and its seconds."""
+    from vit_ed_tpu_torch.hisfrag import main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        c.write_corpus(data)
+        scorer = main(["--cfg", c.FLAGSHIP_CFG, "--data-path", data, "--mode", "test",
+                       "--output", os.path.join(tmp, "out"), "--tag", "ab"])[3]
+    return {"scan pairs/s": scorer.pairs_done / scorer.scan_seconds,
+            "scan s": scorer.scan_seconds}
+
+
+def train_wall(c, puzzle):
+    """{row: value} of phase 9's (hisfrag) or phase 13's (DIV2K) train
+    epoch with the loader: the median step (host clock, ending in a
+    synchronize), trained pairs/s over the steps after the first, and the
+    host ms to make one training item on one thread."""
+    import time
+
+    import numpy as np
+    import torch
+
+    if puzzle:
+        from vit_ed_tpu_torch import main as entry
+
+        trainer_cls = entry.DefaultTrainer
+    else:
+        from vit_ed_tpu_torch import hisfrag as entry
+
+        trainer_cls = entry.HisfragTrainer
+    steps = []
+    inner = trainer_cls.train_step
+
+    def recorded(self, micro_batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        pairs = (c.PUZZLE_BATCH if puzzle else
+                 int(sum(b["pair_mask"].sum() for b in micro_batches)))
+        steps.append((time.time() - t0, pairs))
+        return out
+
+    opts = ("--opts", "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        if puzzle:
+            c.write_div2k(data)
+            argv = c.puzzle_argv(data, out, "ab", "train", *opts)
+        else:
+            c.write_corpus(data, sub="train", seed=1)
+            argv = c.train_argv(data, out, "ab", "--batch-size", str(c.TRAIN_BATCH), *opts)
+        trainer_cls.train_step = recorded
+        try:
+            trainer = entry.main(argv)
+        finally:
+            trainer_cls.train_step = inner
+        ds = trainer.get_dataloader("train").dataset
+        t0 = time.perf_counter()
+        for i in range(16):
+            ds[i]
+        host = (time.perf_counter() - t0) / 16
+    ms = [t * 1e3 for t, _ in steps[1:]]
+    return {"step ms median": float(np.median(ms)),
+            "pairs/s": sum(p for _, p in steps[1:]) / (sum(ms) / 1e3),
+            "host ms/item": host * 1e3}
+
+
 def child(phases):
     """Run in the root of the tree to time: one JSON line of its rows."""
     import torch
@@ -124,6 +198,9 @@ def child(phases):
         if phase in ("4", "9"):
             profiled = chunk_profile(c) if phase == "4" else step_profile(c)
             rows.update({f"{phase}:{k}": v for k, v in profiled.items()})
+        elif phase in ("5", "9w", "13w"):
+            wall = scan_rate(c) if phase == "5" else train_wall(c, phase == "13w")
+            rows.update({f"{phase}:{k}": v for k, v in wall.items()})
         else:
             rows.update({f"{phase}:{k}": v["ms"] for k, v in times[phase](gen).items()})
     print("AB " + json.dumps(rows))
@@ -154,7 +231,7 @@ def main(argv):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    print(f"other = {other}, tree = {tree}; ms")
+    print(f"other = {other}, tree = {tree}; ms unless named")
     print(f"  {'phase:row':40s} {'other':>8s} {'tree':>8s} {'tree':>8s} {'other':>8s}"
           f"  other/tree")
     for key in dict.fromkeys([*runs[1], *runs[0]]):

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout; needs one CUDA card, nvcc, and nothing
-from the JAX package. Phases, each printing its own lines:
+Run from the root of a checkout; needs one CUDA card, nvcc, g++, and
+nothing from the JAX package. Phases, each printing its own lines:
 
 1. the card, its power limit, torch/CUDA versions; the kernels are built
    from vit_ed_tpu_torch/csrc with nvcc (one process per source);
@@ -12,7 +12,8 @@ from the JAX package. Phases, each printing its own lines:
    flagship shapes (B=8, C=384, 6 heads, S=1024/1025, CLS Sq=1), bf16 and
    f32, against its plain PyTorch version, max |kernel - plain| / max
    |plain| within 1e-4 (f32) and 2e-2 (bf16) on inputs whose last key
-   dominates every row (a dropped last key or query row reads O(1));
+   dominates every row (a dropped last key reads O(1)), each launch
+   writing into an output filled with NaN (an unstored row reads NaN);
    kv_shared must equal the materialised broadcast and CLS the full
    output's row 0 bit for bit;
 3. kernel times at the main path's shapes (B=64 pairs, bf16): the kernel,
@@ -41,7 +42,11 @@ from the JAX package. Phases, each printing its own lines:
    --mode train`` (in process, bf16, DROP_PATH_RATE 0.1, 16 images -> 49
    pairs per step, one epoch, validate before and after) on a synthetic
    corpus, launch counts reset before and read after; then the checkpoint
-   is reloaded and one step is broken down with torch.profiler;
+   is reloaded, two steps from one state must give equal parameters and
+   AdamW moments bit for bit, one step is broken down with torch.profiler,
+   and the host ms per training item is timed by stage, through the native
+   pipeline and through the plain chain on the same items (equal bit for
+   bit);
 10. the 4-D kernels against plain: forward and dq / dk / dv through every
     route (``fused_attention``, ``fused_attention_heads``,
     ``fused_attention_flat`` and the five packed wrappers) at 12 heads of
@@ -49,7 +54,8 @@ from the JAX package. Phases, each printing its own lines:
     decoder's S=65 with Sk 65 and 64 and CLS Sq=1 in both attentions, the
     encoder's S=64) and
     at B=8, S=1025 (Sk 1025 and 1024), and head_dim 16, 64, 128 at one
-    shape, the forward held as in phase 2 (inputs whose last key dominates);
+    shape, the forward held as in phase 2 (inputs whose last key dominates,
+    outputs filled with NaN);
     bit-equal reruns; CLS == row 0 and shared kv == broadcast exactly;
 11. 4-D kernel times (forward, dq, dkv) at the puzzle path's shapes (B=128,
     12 heads, head_dim 32, bf16: S=65, the encoder's S=64, Sq=1), at B=64,
@@ -64,7 +70,14 @@ from the JAX package. Phases, each printing its own lines:
     wrapper and by shape) reset before and read after; then ``--mode eval``
     and ``--mode throughput``, each with counts of its own; then the O(N^2)
     scan at head_dim 32 (``vit_ed_tpu_torch.hisfrag --mode test`` with 12
-    heads).
+    heads); the host ms per training item by stage, native and plain, as
+    in phase 9;
+14. the native input pipeline (``vit_ed_tpu_torch/native/pipeline.cc``),
+    run before phase 5, the first phase that reads images: its g++ build
+    (seconds, libjpeg linked or not, the decoder used, the CPU it was built
+    for), then native against plain bit for bit on 16 JPEGs of ~600 x 700
+    px: decode, the hisfrag train chain at 512, the eval crop and the
+    PipelinePool batch.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -74,6 +87,7 @@ card (``nvidia-smi`` name, power limit) and one JSON object with the
 kernels' numbers; the last line is the result JSON.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -211,10 +225,17 @@ def forward_reading(out, ref):
 
 
 def poison(like):
-    """A NaN-filled block of the caching allocator, freed at once: the
-    kernel's output, allocated next at the same size, lands in it, so rows
-    a kernel never writes read NaN, not an earlier call's result."""
-    torch.full(tuple(like.shape), float("nan"), dtype=like.dtype, device="cuda")
+    """A NaN-filled tensor of ``like``'s shape and type, handed to the kernel
+    as its output, so that rows it never writes read NaN, whatever the
+    allocator held there before."""
+    return torch.full(tuple(like.shape), float("nan"), dtype=like.dtype, device="cuda")
+
+
+def launch(layout, *tensors, h=H):
+    """A wrapper's call through ``A._attend`` (the dispatch every wrapper
+    makes): ``call()`` allocates the output, ``call(out)`` writes into
+    ``out``."""
+    return lambda out=None: A._attend(layout, tensors, h, None, out=out)
 
 
 def heads(x):
@@ -241,28 +262,28 @@ def cases(gen, dtype, b, s, sk, probe=False):
     qh, kh, vh = (heads(t) for t in qkv.split(C, -1))
     k1h, v1h = (heads(t.expand(b, -1, -1)) for t in kv1.split(C, -1))
     return {
-        "qkv": (lambda: A.fused_attention_packed_qkv(qkv, H),
+        "qkv": (launch("qkv", qkv),
                 lambda: A.pair_attention_plain(*qkv.split(C, -1), H, sc),
                 lambda: sdpa(qh, kh, vh),
                 {"qkv": qkv}),
-        "kv_shared": (lambda: A.fused_attention_packed_kv_shared(q, kv1, H),
+        "kv_shared": (launch("kv_shared", q, kv1),
                       lambda: A.pair_attention_plain(q, *kv1.split(C, -1), H, sc),
                       lambda: sdpa(heads(q), k1h, v1h),
                       {"q": q, "kv1": kv1}),
-        "kv_shared_cls": (lambda: A.fused_attention_packed_kv_shared(q1, kv1, H),
+        "kv_shared_cls": (launch("kv_shared", q1, kv1),
                           lambda: A.pair_attention_plain(q1, *kv1.split(C, -1), H, sc),
                           None, {}),
-        "qkv_cls": (lambda: A.fused_attention_packed_qkv_cls(qkv, H),
+        "qkv_cls": (launch("qkv_cls", qkv),
                     lambda: A.pair_attention_plain(
                         *(t[:, :1] if i == 0 else t
                           for i, t in enumerate(qkv.split(C, -1))), H, sc),
                     lambda: sdpa(qh[:, :, :1], kh, vh),
                     {}),
-        "kv": (lambda: A.fused_attention_packed_kv(q, kv, H),
+        "kv": (launch("kv", q, kv),
                lambda: A.pair_attention_plain(q, k, v, H, sc),
                lambda: sdpa(heads(q), heads(k), heads(v)),
                {}),
-        "packed": (lambda: A.fused_attention_packed(q, k, v, H),
+        "packed": (launch("packed", q, k, v),
                    lambda: A.pair_attention_plain(q, k, v, H, sc),
                    lambda: sdpa(heads(q), heads(k), heads(v)),
                    {}),
@@ -279,8 +300,7 @@ def phase_kernels_vs_plain(gen):
             outs = {}
             for name, (kern, plain, _lib, _inp) in cs.items():
                 ref = plain()
-                poison(ref)
-                out = kern()
+                out = kern(poison(ref))
                 torch.cuda.synchronize()
                 e, rel = forward_reading(out, ref)
                 ok = rel <= TOL[dtype]
@@ -862,27 +882,214 @@ def phase_train_path(tmp):
           f"{same}", flush=True)
     if moved < len(init) - 2 or not same or tree["step"] != len(steps):
         raise AssertionError("parameters did not move or the checkpoint differs")
+    reproducible_step(trainer)
     step_breakdown(trainer)
-    host_input_cost(trainer)
+    host_input_cost(trainer, hisfrag_stages())
     del trainer
     torch.cuda.empty_cache()
     return counts
 
 
-def host_input_cost(trainer, what="JPEG decode + train augmentation"):
-    """Host seconds to make one training item, one thread, nothing else
-    running: what the loader's threads spend per batch while the step's
-    Python thread competes with them for the interpreter."""
+def reproducible_step(trainer):
+    """Two train steps from one state (weights, AdamW moments, the DropPath
+    generator, the step count) on one prepared batch: every parameter and
+    moment must come out equal bit for bit. Beside it, for the record, the
+    pair gather's old backward (index_select's, atomic adds) run twice on
+    one gradient at the step's shapes."""
+    import copy
+
+    samples, targets = next(iter(trainer.get_dataloader("train")))
+    np.random.seed(0)
+    host = trainer.prepare_data(samples, targets)
+    model, opt, gen = trainer.model, trainer.optimizer, trainer.drop_path_generator
+    start = (copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict()),
+             gen.get_state(), trainer.step)
+
+    def step():
+        model.load_state_dict(start[0])
+        opt.load_state_dict(copy.deepcopy(start[1]))
+        gen.set_state(start[2])
+        trainer.step = start[3]
+        trainer.train_step([host])
+        torch.cuda.synchronize()
+        out = {f"param {n}": p.detach().clone() for n, p in model.named_parameters()}
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"moment {i} {k}": v.clone() for k, v in st.items()
+                        if torch.is_tensor(v)})
+        return out
+
+    a, b = step(), step()
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    batch = trainer._to_device(host)
+    gj = batch["gj"].long()
+    feats = torch.randn((TRAIN_BATCH, 1025, C), device="cuda").to(model.dtype)
+    grad = torch.randn((len(gj), 1025, C), device="cuda").to(model.dtype)
+    atomic = []
+    for _ in range(2):
+        x = feats.clone().requires_grad_()
+        x.index_select(0, gj).backward(grad)
+        atomic.append(x.grad)
+    torch.cuda.synchronize()
+    print(f"  reproducible step: two steps from one state, {len(a)} parameter and "
+          f"moment tensors, {len(a) - len(differ)} equal bit for bit; "
+          f"index_select's backward run twice on one gradient ({len(gj)} pairs "
+          f"into {TRAIN_BATCH} images): "
+          f"{int((atomic[0] != atomic[1]).sum())} elements differ", flush=True)
+    if differ:
+        raise AssertionError(f"a train step is not reproducible: {differ[:8]}")
+
+
+# the train items' host stages, as (label, owner module or class, attribute);
+# the decode stage is the dataset module's own open_rgb
+def hisfrag_stages():
+    from vit_ed_tpu_torch.data import hisfrag as hisfrag_data
+    from vit_ed_tpu_torch.data import transforms as T
+
+    return [("decode", hisfrag_data, "open_rgb"), ("random_affine", T, "random_affine"),
+            ("shift_scale_rotate", T, "shift_scale_rotate"),
+            ("random_crop", T, "random_crop"), ("color_jitter", T, "color_jitter"),
+            ("blur", T.GaussianBlur, "__call__"), ("normalize", T, "normalize_image")]
+
+
+def div2k_stages():
+    from vit_ed_tpu_torch.data import transforms as T
+
+    return [("decode", T, "open_rgb"), ("shift_scale_rotate", T, "shift_scale_rotate"),
+            ("rgb_shift", T, "rgb_shift"), ("random_crop", T, "random_crop"),
+            ("grid + center crops", T, "crop"), ("center_crop", T, "center_crop"),
+            ("resize + normalize", T.TwoImgSyncEval, "_one")]
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The port's transforms through their plain versions (PIL / numpy)
+    instead of the native pipeline, for as long as the block runs."""
+    from vit_ed_tpu_torch.data import hisfrag as hisfrag_data
+    from vit_ed_tpu_torch.data import transforms as T
+
+    saved = T._native_ok, T.open_rgb, hisfrag_data.open_rgb
+    T._native_ok = lambda x: False
+    T.open_rgb = hisfrag_data.open_rgb = T.open_rgb_plain
+    try:
+        yield
+    finally:
+        T._native_ok, T.open_rgb, hisfrag_data.open_rgb = saved
+
+
+def run_items(ds, n, stages):
+    """ds[i] for i < n, each after random.seed(i), with every stage timed
+    (host seconds per stage)."""
+    import random
+
+    spent = {label: 0.0 for label, _, _ in stages}
+    saved = []
+    for label, owner, attr in stages:
+        def timed_stage(*a, _fn=getattr(owner, attr), _label=label, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            spent[_label] += time.perf_counter() - t0
+            return out
+        saved.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, timed_stage)
+    try:
+        items = []
+        t0 = time.perf_counter()
+        for i in range(n):
+            random.seed(i)
+            items.append(ds[i])
+        total = time.perf_counter() - t0
+    finally:
+        for owner, attr, value in reversed(saved):
+            setattr(owner, attr, value)
+    return items, total, spent
+
+
+def host_input_cost(trainer, stages, what="JPEG decode + train augmentation"):
+    """Host milliseconds to make one training item, one thread, nothing else
+    running, by stage: through the native pipeline (the path) and through
+    the plain PIL / numpy chain, on the same items and seeds, which must
+    come out equal bit for bit. This is what the loader's threads spend per
+    batch while the step's Python thread competes with them for the
+    interpreter."""
     ds = trainer.get_dataloader("train").dataset
     batch = trainer.config.DATA.BATCH_SIZE
     n = min(16, len(ds))
+    runs = {"native": run_items(ds, n, stages)}
+    with plain_route():
+        runs["plain"] = run_items(ds, n, stages)
+    for route, (_, total, spent) in runs.items():
+        rest = total - sum(spent.values())
+        print(f"  host input, {route}: {total / n * 1e3:.2f} ms per item ({what}, one "
+              f"thread): " + ", ".join(f"{k} {v / n * 1e3:.2f}" for k, v in spent.items())
+              + f", rest {rest / n * 1e3:.2f} ms", flush=True)
+    per = runs["native"][1] / n
+    print(f"  host input: {per * 1e3:.1f} ms per item = {per * batch:.2f} s of host "
+          f"work per {batch}-item batch over {trainer.config.DATA.NUM_WORKERS} loader "
+          f"threads; plain / native {runs['plain'][1] / runs['native'][1]:.2f}x",
+          flush=True)
+    for i, (a, b) in enumerate(zip(runs["native"][0], runs["plain"][0])):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"item {i}: the native pipeline differs from plain")
+
+
+def march_native():
+    """What g++ resolves -march=native to on this host."""
+    res = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                         capture_output=True, text=True)
+    return next((line.split()[-1] for line in res.stdout.splitlines()
+                 if line.strip().startswith("-march=")), "unknown")
+
+
+def phase_native(tmp):
+    """The native input pipeline on this host: its build, then native
+    against plain bit for bit on the hisfrag train chain, the eval prep and
+    the pool batch, on JPEGs of the scan's size."""
+    import random
+
+    from vit_ed_tpu_torch.data import transforms as T
+    from vit_ed_tpu_torch.hisfrag import HisfragTrainer
+    from vit_ed_tpu_torch.native import pipeline as P
+
+    print("== phase 14: the native input pipeline (vit_ed_tpu_torch/native/pipeline.cc)",
+          flush=True)
     t0 = time.time()
-    for i in range(n):
-        ds[i]
-    per = (time.time() - t0) / n
-    print(f"  host input: {per * 1e3:.1f} ms per item ({what}, numpy/PIL, one "
-          f"thread) = {per * batch:.2f} s of host work per {batch}-item batch over "
-          f"{trainer.config.DATA.NUM_WORKERS} loader threads", flush=True)
+    P.decode_route()
+    info = P.build_info
+    print(f"  built in {info['seconds']:.1f}s ({time.time() - t0:.1f}s with the JPEG "
+          f"probe): libjpeg linked {info['jpeg']}, JPEG decode by {info['decode_route']}; "
+          f"for {info['cpu'] or 'an unnamed CPU'} (-march=native = {march_native()}); "
+          f"{os.path.relpath(info['path'], ROOT)}", flush=True)
+    data = os.path.join(tmp, "native")
+    n = write_corpus(data, writers=4, seed=3)
+    paths = sorted(os.path.join(data, "test", f) for f in os.listdir(os.path.join(data, "test")))
+    stub = types.SimpleNamespace(config=types.SimpleNamespace(
+        DATA=types.SimpleNamespace(IMG_SIZE=512),
+        TPU=types.SimpleNamespace(DEVICE_NORMALIZE=False)))
+    train = HisfragTrainer.get_transforms(stub)["train"]
+    evaluate = OneImgEval(512, crop=True)
+
+    def chain(seed, path):
+        random.seed(seed)
+        img = T.open_rgb(path)
+        return np.asarray(img), train(img), evaluate(img)
+
+    native = [chain(i, p) for i, p in enumerate(paths)]
+    with plain_route():
+        plain = [chain(i, p) for i, p in enumerate(paths)]
+    with P.PipelinePool(8) as pool:
+        raws = [x[0] for x in native]
+        rects = [evaluate.pool_crop(a.shape[:2]) for a in raws]
+        batch = pool.prep_batch(raws, rects[0][1], [r[0] for r in rects])
+    checks = {
+        "decode": all(np.array_equal(a[0], b[0]) for a, b in zip(native, plain)),
+        "train chain": all(np.array_equal(a[1], b[1]) for a, b in zip(native, plain)),
+        "eval prep": all(np.array_equal(a[2], b[2]) for a, b in zip(native, plain)),
+        "pool batch": np.array_equal(batch, np.stack([b[2] for b in plain])),
+    }
+    print(f"  {n} JPEGs of ~600 x 700 px, seeds 0-{n - 1}, 512 x 512 crops: native "
+          f"against plain bit for bit: {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the native pipeline differs from plain: {checks}")
 
 
 def step_breakdown(trainer):
@@ -933,16 +1140,11 @@ def step_breakdown(trainer):
 # the 4-D kernels (head_dim != 64) and the DIV2K puzzle-pair path
 # ---------------------------------------------------------------------------
 
-# layout -> (wrapper, names of its inputs); the first five take num_heads
-HEADS_WRAPPERS = {
-    "qkv": (A.fused_attention_packed_qkv, ("qkv",)),
-    "qkv_cls": (A.fused_attention_packed_qkv_cls, ("qkv",)),
-    "kv": (A.fused_attention_packed_kv, ("q", "kv")),
-    "kv_shared": (A.fused_attention_packed_kv_shared, ("q", "kv1")),
-    "packed": (A.fused_attention_packed, ("q", "k", "v")),
-    "bhsd": (A.fused_attention, ("q4", "k4", "v4")),
-    "bhsd_eval": (A.fused_attention_heads, ("q4", "k4", "v4")),
-    "flat": (A.fused_attention_flat, ("q3", "k3", "v3")),
+# layout -> the names of its inputs (heads_inputs)
+HEADS_INPUTS = {
+    "qkv": ("qkv",), "qkv_cls": ("qkv",), "kv": ("q", "kv"), "kv_shared": ("q", "kv1"),
+    "packed": ("q", "k", "v"), "bhsd": ("q4", "k4", "v4"), "bhsd_eval": ("q4", "k4", "v4"),
+    "flat": ("q3", "k3", "v3"),
 }
 
 
@@ -965,9 +1167,8 @@ def heads_inputs(gen, dtype, b, s, sk, h=HH, d=HD, probe=False):
     return {n: x.to(dtype) for n, x in t.items()}
 
 
-def heads_call(layout, tensors, h=HH):
-    fn = HEADS_WRAPPERS[layout][0]
-    return fn(*tensors, h) if layout in A.PACKED_LAYOUTS else fn(*tensors)
+def heads_call(layout, tensors, h=HH, out=None):
+    return launch(layout, *tensors, h=h)(out)
 
 
 def heads_plain(layout, tensors, h=HH):
@@ -992,11 +1193,10 @@ def check_heads_layout(layout, t, dtype, tag, err, h=HH):
     """One wrapper of the 4-D route against plain on the card: forward, and
     where it has a VJP the gradients, two runs bit-equal. Returns the
     forward output."""
-    tensors = [t[n] for n in HEADS_WRAPPERS[layout][1]]
+    tensors = [t[n] for n in HEADS_INPUTS[layout]]
     with torch.no_grad():
         ref = heads_plain(layout, tensors, h)
-        poison(ref)
-        out = heads_call(layout, tensors, h)
+        out = heads_call(layout, tensors, h, poison(ref))
     torch.cuda.synchronize()
     e, rel = forward_reading(out, ref)
     ok = rel <= TOL[dtype]
@@ -1043,7 +1243,7 @@ def phase_heads_vs_plain(gen):
         for b, s, sk in shapes:
             t = heads_inputs(gen, dtype, b, s, sk, probe=True)
             outs = {}
-            for layout in HEADS_WRAPPERS:
+            for layout in HEADS_INPUTS:
                 if layout.startswith("qkv") and s != sk:
                     continue          # self-attention has Sk == S
                 outs[layout] = check_heads_layout(layout, t, dtype,
@@ -1115,7 +1315,7 @@ def phase_heads_times(gen):
         for layout in layouts:
             sk = s if layout in ("qkv", "qkv_cls") else sk_cross
             t = heads_inputs(gen, torch.bfloat16, b, s, sk)
-            tensors = [t[n] for n in HEADS_WRAPPERS[layout][1]]
+            tensors = [t[n] for n in HEADS_INPUTS[layout]]
             q, k, v = A._heads_views(layout, tensors, HH)
             sq = q.shape[2]
             shape = f"B={b} H={HH} Sq={sq} Sk={sk} d={HD} bf16"
@@ -1352,7 +1552,8 @@ def phase_puzzle_path(tmp):
         raise AssertionError("parameters did not move, the checkpoint differs or "
                              "--pretrained did not load it")
     step_breakdown(trainer)
-    host_input_cost(trainer, "PNG decode + flips, warp, crops and two resizes")
+    host_input_cost(trainer, div2k_stages(),
+                    "PNG decode + flips, warp, crops and two resizes")
     del trainer
     torch.cuda.empty_cache()
     return shapes
@@ -1416,6 +1617,7 @@ def main():
     times = phase_times(gen)
     phase_model(gen)
     with tempfile.TemporaryDirectory() as tmp:
+        phase_native(tmp)
         counts = phase_main_path(tmp)
         bwd_err = phase_backward_vs_plain(gen)
         train_times = phase_backward_times(gen)

@@ -169,3 +169,54 @@ def test_kernel_rules_without_a_card():
     with pytest.raises(ValueError, match="batch 1"):
         tattn.fused_attention_packed_kv_shared(torch.zeros(2, 8, 128),
                                                torch.zeros(2, 8, 256), H)
+
+
+@pytest.mark.parametrize("layout,names,h", [
+    ("qkv", ("qkv",), H), ("kv_shared", ("q", "kv1"), H), ("qkv_cls", ("qkv",), H),
+    ("kv", ("q", "kv"), H), ("packed", ("q", "k", "v"), H),
+    ("qkv", ("qkv",), 4)])           # head_dim 32: the 4-D route
+def test_forward_writes_into_a_given_output(layout, names, h):
+    """``_attend(..., out=...)``, through which the card tests hand a kernel
+    a NaN-filled output: the wrapper's values, in the tensor given, on both
+    routes; a wrong shape and a call under autograd raise."""
+    a = {n: torch.from_numpy(v.astype(np.float32)) for n, v in _inputs(5, 17, None).items()}
+    tensors = [a[n] for n in names]
+    want = tattn._attend(layout, tensors, h, None)
+    out = torch.full(want.shape, float("nan"))
+    got = tattn._attend(layout, tensors, h, None, out=out)
+    assert got.data_ptr() == out.data_ptr() and torch.equal(out, want)
+    with pytest.raises(ValueError, match="out must be"):
+        tattn._attend(layout, tensors, h, None, out=torch.empty(want.shape[0], 3))
+    grad = [t.clone().requires_grad_() for t in tensors]
+    with pytest.raises(ValueError, match="outside autograd"):
+        tattn._attend(layout, grad, h, None, out=out)
+
+
+WRAPPERS = {
+    "qkv": (tattn.fused_attention_packed_qkv, ("qkv",), True),
+    "qkv_cls": (tattn.fused_attention_packed_qkv_cls, ("qkv",), True),
+    "kv_shared": (tattn.fused_attention_packed_kv_shared, ("q", "kv1"), True),
+    "kv": (tattn.fused_attention_packed_kv, ("q", "kv"), True),
+    "packed": (tattn.fused_attention_packed, ("q", "k", "v"), True),
+    "bhsd": (tattn.fused_attention, ("q4", "k4", "v4"), False),
+    "bhsd_eval": (tattn.fused_attention_heads, ("q4", "k4", "v4"), False),
+    "flat": (tattn.fused_attention_flat, ("q3", "k3", "v3"), False),
+}
+
+
+@pytest.mark.parametrize("h", [H, 4])          # head_dim 64 and 32
+@pytest.mark.parametrize("layout", list(WRAPPERS))
+def test_every_wrapper_is_the_attend_call_of_its_layout(layout, h):
+    """Each public wrapper equals ``_attend(layout, tensors, h, None)``, the
+    call through which the card's forward checks hand a kernel its output:
+    a head-count rule of a wrapper cannot drift from the checked one."""
+    fn, names, packed = WRAPPERS[layout]
+    a = {n: torch.from_numpy(v.astype(np.float32)) for n, v in _inputs(6, 17, None).items()}
+    d = C // h
+    a["q4"], a["k4"], a["v4"] = (tattn._heads(a[n], h) for n in ("q", "k", "v"))
+    a["q3"], a["k3"], a["v3"] = (a[n].reshape(B * h, 17, d) for n in ("q4", "k4", "v4"))
+    tensors = [a[n] for n in names]
+    with torch.no_grad():
+        got = fn(*tensors, h) if packed else fn(*tensors)
+        want = tattn._attend(layout, tensors, h, None)
+    assert torch.equal(got, want)

@@ -54,10 +54,24 @@ def _fwd_err(out, ref):
 
 
 def _poison(like, device):
-    """Fill a block of the caching allocator with NaN and free it: the
-    kernel's output, allocated next at the same size, lands in it, so rows
-    the kernel never writes read NaN rather than an earlier call's result."""
-    torch.full(tuple(like.shape), float("nan"), dtype=like.dtype, device=device)
+    """A NaN-filled tensor of ``like``'s shape and type: the output a forward
+    check hands the kernel, so that an element it never stores reads NaN,
+    whatever the allocator did before."""
+    return torch.full(tuple(like.shape), float("nan"), dtype=like.dtype,
+                      device=device)
+
+
+# each wrapper's inputs, by layout (the names of _probed_inputs)
+ARGS = {"qkv": ("qkv",), "kv_shared": ("q", "kv1"), "qkv_cls": ("qkv",),
+        "kv": ("q", "kv"), "packed": ("q", "k", "v"), "bhsd": ("q4", "k4", "v4"),
+        "bhsd_eval": ("q4", "k4", "v4"), "flat": ("q3", "k3", "v3")}
+
+
+def _forward_into(layout, h, a, out=None):
+    """A wrapper's forward on the inputs ``a`` through ``A._attend``, the
+    dispatch every wrapper makes, writing into ``out`` when given."""
+    tensors = [a[n] for n in ARGS[layout]]
+    return A._attend(layout, tensors, h, None, out=out)
 
 
 def _probed_inputs(seed, sq, sk, dtype, c=C, h=H):
@@ -85,16 +99,18 @@ def _probed_inputs(seed, sq, sk, dtype, c=C, h=H):
     return {n: x.to(dtype) for n, x in t.items()}
 
 
-def _check_forward(call, cpu, device, dtype):
-    """call(inputs) on the card twice (bit-equal) against the same call on
-    the CPU (the plain version), each launch into a NaN-filled block."""
-    plain = call(cpu)
+def _check_forward(layout, h, cpu, device, dtype):
+    """The wrapper of ``layout`` (``h`` heads) on the card twice (bit-equal)
+    against the same call on the CPU (the plain version), each launch
+    writing into an output filled with NaN."""
+    plain = _forward_into(layout, h, cpu)
     dev = {n: x.to(device) for n, x in cpu.items()}
     outs = []
     with torch.inference_mode():
         for _ in range(2):
-            _poison(plain, device)
-            outs.append(call(dev))
+            poisoned = _poison(plain, device)
+            outs.append(_forward_into(layout, h, dev, poisoned))
+            assert outs[-1].data_ptr() == poisoned.data_ptr()
         torch.cuda.synchronize()
     out, again = outs
     assert out.dtype == dtype and out.shape == plain.shape
@@ -136,7 +152,7 @@ CALLS = {
 def test_kernel_matches_plain(card, wrapper, s, dtype):
     cpu = _probed_inputs(s, s, s - 1, dtype)
     before = A.launches[wrapper]
-    _check_forward(CALLS[wrapper], cpu, card, dtype)
+    _check_forward(wrapper, H, cpu, card, dtype)
     assert A.launches[wrapper] == before + 2
 
 
@@ -300,7 +316,7 @@ def test_heads_kernel_matches_plain(card, wrapper, s, dtype):
     puzzle encoder's self-attention (no CLS token, one full tile)."""
     cpu = _probed_inputs(s, s, s - 1, dtype, c=HC, h=HH)
     before = A.launches["heads_" + wrapper]
-    _check_forward(HEADS_CALLS[wrapper], cpu, card, dtype)
+    _check_forward(wrapper, HH, cpu, card, dtype)
     assert A.launches["heads_" + wrapper] == before + 2
 
 
@@ -378,14 +394,16 @@ def test_other_head_dims_match_plain(card, d, dtype):
             return out.detach(), [a.grad for a in args]
 
         before = dict(A.launches)
-        out, got = run(dev)
+        _, got = run(dev)
         _, again = run(dev)
         torch.cuda.synchronize()
         assert sum(A.launches.values()) == sum(before.values()) + 6
         assert all(A.launches[k] == before[k] for k in before if not k.startswith("heads_"))
-        ref_out, ref = run(cpu)
-        assert _fwd_err(out, ref_out) <= FWD_TOL[dtype]
+        _, ref = run(cpu)
         _assert_grads_close(got, again, ref, dtype)
+    # the forward, each launch writing into an output filled with NaN
+    _check_forward("bhsd", 3, cpu, card, dtype)
+    _check_forward("qkv", 3, cpu, card, dtype)
 
 
 @pytest.mark.cuda
@@ -555,7 +573,7 @@ def test_heads_forward_at_ragged_lengths(card, sq, sk, d, dtype):
     for every pair of query and key counts around the 16-row warps, the
     64-key tiles and the 128-key limit of the one-pass scheme."""
     cpu = _probed_bhsd(sq * 7919 + sk * 31 + d, sq, sk, d, dtype)
-    _check_forward(HEADS_CALLS["bhsd_eval"], cpu, card, dtype)
+    _check_forward("bhsd_eval", HH, cpu, card, dtype)
 
 
 @pytest.mark.cuda
@@ -570,7 +588,7 @@ def test_heads_forward_through_layout_views(card, wrapper, s, d, dtype):
     (d = 64 at C = 192 takes the 4-D route: C % 128 != 0)."""
     cpu = _probed_inputs(100 * s + d, s, s, dtype, c=3 * d, h=HH)
     before = A.launches["heads_" + wrapper]
-    _check_forward(HEADS_CALLS[wrapper], cpu, card, dtype)
+    _check_forward(wrapper, HH, cpu, card, dtype)
     assert A.launches["heads_" + wrapper] == before + 2
 
 
@@ -583,7 +601,7 @@ def test_pair_forward_at_ragged_lengths(card, wrapper, s, dtype):
     1 or 17 real keys, and (S = 1025) a last query tile of one row."""
     cpu = _probed_inputs(s + 7, s, s, dtype)
     before = A.launches[wrapper]
-    _check_forward(CALLS[wrapper], cpu, card, dtype)
+    _check_forward(wrapper, H, cpu, card, dtype)
     assert A.launches[wrapper] == before + 2
 
 
@@ -624,3 +642,66 @@ def test_pair_cls_and_shared_are_bit_exact_at_ragged_lengths(card, s, dtype):
     shared, bcast, cls, full = _contract_runs(a, H)
     assert torch.equal(shared, bcast)
     assert torch.equal(cls, full[:, :1])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GELU chain and the reproducible train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_gelu_chain_on_card_equals_cpu_on_every_bf16_input(card):
+    """``_gelu_chain`` (ops/gelu.py) on the card against the CPU on all
+    65,536 bf16 bit patterns, bit for bit; a NaN equals any NaN (its payload
+    is no value). ``-s`` prints the count of differing patterns."""
+    from vit_ed_tpu_torch.ops.gelu import _gelu_chain
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    cpu = _gelu_chain(x)
+    dev = _gelu_chain(x.to(card)).cpu()
+    both_nan = torch.isnan(cpu) & torch.isnan(dev)
+    differ = (cpu.view(torch.int16) != dev.view(torch.int16)) & ~both_nan
+    print(f"gelu chain: {int(differ.sum())} of 65536 bf16 inputs differ, card "
+          f"against CPU; first {x[differ][:8].float().tolist()}")
+    assert int(differ.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_hisfrag_train_steps_are_bit_reproducible(card, tmp_path):
+    """Two trainers from one seed (weights, DropPath generator, mined pairs)
+    take three bf16 steps with drop path 0.1 on the same batches: every
+    parameter and optimizer moment is equal bit for bit (the pair gather's
+    backward sums in a fixed order, ops/gather.py)."""
+    import types
+
+    from vit_ed_tpu_torch.hisfrag import HisfragTrainer
+
+    opts = ["MODEL.PJS.EMBED_DIM", "128", "MODEL.PJS.NUM_HEADS", "2",
+            "MODEL.PJS.DEPTH", "2", "MODEL.PJS.C_DEPTH", "2", "DATA.IMG_SIZE", "64",
+            "MODEL.PJS.PATCH_SIZE", "16", "MODEL.DROP_PATH_RATE", "0.1",
+            "TRAIN.AUTO_RESUME", "False"]
+
+    def run(tag):
+        trainer = HisfragTrainer(types.SimpleNamespace(
+            cfg=None, device="cuda", mode="train", batch_size=8,
+            accumulation_steps=1, disable_amp=False, output=str(tmp_path / tag),
+            tag=tag, opts=opts))
+        trainer.setup_training(3)
+        rng = np.random.default_rng(0)
+        np.random.seed(0)
+        for _ in range(3):
+            samples = rng.normal(size=(8, 64, 64, 3)).astype(np.float32)
+            targets = rng.permutation(np.repeat(np.arange(4), 2)).astype(np.int32)
+            trainer.train_step([trainer.prepare_data(samples, targets)])
+        torch.cuda.synchronize()
+        state = {f"param {n}": p.detach().cpu()
+                 for n, p in trainer.model.named_parameters()}
+        for i, s in trainer.optimizer.state_dict()["state"].items():
+            state.update({f"opt {i} {k}": v.cpu() for k, v in s.items()
+                          if torch.is_tensor(v)})
+        return trainer.model.dtype, state
+
+    (dtype, a), (_, b) = run("a"), run("b")
+    assert dtype == torch.bfloat16
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    assert not differ, differ

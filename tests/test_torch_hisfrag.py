@@ -144,6 +144,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "vit_ed_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 10
+    # the native pipeline's subpackage is scanned too
+    native = ROOT / "vit_ed_tpu_torch" / "native"
+    assert {native / "__init__.py", native / "pipeline.py"} <= set(files)
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_ed_tpu"}
     found = [(str(f.relative_to(ROOT)), name) for f in files
              for name in _imports(f) if name.split(".")[0] in banned]

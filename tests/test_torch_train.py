@@ -299,3 +299,41 @@ def test_train_transform_chain_matches_jax():
         ref = chain(JT, img)
         random.seed(seed)
         np.testing.assert_array_equal(chain(TT, img), ref)
+
+
+# ------------------------------------------------------------ pair gather
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_is_index_select_with_a_fixed_order_backward(dtype):
+    """``gather_rows`` gathers what ``index_select`` gathers, and its
+    one-hot backward gives ``index_select``'s gradient (integer cotangents:
+    every partial sum is exact in both types, so the summation order cannot
+    show); rows never gathered get zeros."""
+    from vit_ed_tpu_torch.ops.gather import gather_rows
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(16, 5, 8)).astype(np.float32)).to(dtype)
+    index = torch.from_numpy(rng.integers(0, 14, 49))
+    g = torch.from_numpy(rng.integers(-8, 8, (49, 5, 8)).astype(np.float32)).to(dtype)
+    ours, ref = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = gather_rows(ours, index)
+    want = ref.index_select(0, index)
+    assert torch.equal(out, want)
+    out.backward(g)
+    want.backward(g)
+    assert ours.grad.dtype == dtype
+    assert torch.equal(ours.grad, ref.grad)
+    assert not ours.grad[14:].any()
+
+
+def test_gather_rows_backward_sums_in_float32():
+    """Real-valued cotangents: the one-hot product against index_add's
+    running sum, both in float32, within a few ulps of the sum."""
+    from vit_ed_tpu_torch.ops.gather import gather_rows
+
+    rng = np.random.default_rng(1)
+    x = torch.zeros(16, 33, requires_grad=True)
+    index = torch.from_numpy(rng.integers(0, 16, 49))
+    g = torch.from_numpy(rng.normal(size=(49, 33)).astype(np.float32))
+    gather_rows(x, index).backward(g)
+    want = torch.zeros(16, 33).index_add_(0, index, g)
+    np.testing.assert_allclose(x.grad.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)

@@ -7,18 +7,23 @@ jax/flax/optax): the framework-neutral pieces it needs (config, data,
 metrics, utils) are its own copies.
 
 This package today: the row-sharded O(N^2) writer-retrieval scoring path
-of ViT-ED (slice 1) and its mined-pair training (slice 2) —
-``python -m vit_ed_tpu_torch.hisfrag --mode train|eval|test``.
+of ViT-ED and its mined-pair training
+(``python -m vit_ed_tpu_torch.hisfrag --mode train|eval|test``), the DIV2K
+puzzle-pair entry (``python -m vit_ed_tpu_torch.main``), and their input
+pipeline in native C++.
 
   device     -- ``resolve_device``: CUDA unless the caller asks for the CPU
   config     -- YAML config tree (same keys as vit_ed_tpu.config)
-  ops        -- the pair-attention CUDA kernels (forward, backward) + plain
-                versions, bf16 GELU with its closed-form derivative
+  ops        -- the attention CUDA kernels (pair and 4-D, forward and
+                backward) + plain versions, bf16 GELU with its closed-form
+                derivative, the pair gather with a fixed-order backward
   models     -- ViT-ED (timm key layout), JAX-param conversion, factory
   parallel   -- the single-process row-sharded pair scorer
   train      -- losses, schedules + optimizers, checkpoints, the Trainer
-  data       -- HisFrag20 datasets, transforms, sampler, loader
-  metrics    -- wi19 retrieval metrics
+  data       -- HisFrag20 and DIV2K datasets, transforms, samplers, loader
+  native     -- the input pipeline in C++ (g++ at first use, ctypes):
+                decode, warps, jitter, blur, fused crop/resize/normalize
+  metrics    -- wi19 retrieval and classification metrics
 """
 
 __version__ = "0.1.0"

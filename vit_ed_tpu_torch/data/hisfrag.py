@@ -7,6 +7,12 @@ splits by sorted order (93% train / 7% val inside ``train/``, all of
 ``test/``); the val split keeps ~``val_n_items_per_writer`` fragments per
 writer by striding. The sample order is the JAX package's exactly, so both
 frameworks score the same matrix.
+
+Both datasets also serve the whole-batch protocol of the loader and the
+scorer (``data/loader.py``, ``parallel/pairs.py``): ``raw_image(i)`` is the
+decoded u8 image of item i without its transform, ``item_meta(i)`` the
+item's other fields, so that a transform with ``pool_crop`` runs for a
+whole batch in the native ``PipelinePool``.
 """
 
 from __future__ import annotations
@@ -108,6 +114,12 @@ class HisFrag20:
         return (as_sample_array(image),
                 np.asarray(self.data_labels[index], np.int32))
 
+    def raw_image(self, index: int) -> np.ndarray:
+        return np.asarray(open_rgb(self.samples[index]), np.uint8)
+
+    def item_meta(self, index: int):
+        return (np.asarray(self.data_labels[index], np.int32),)
+
     def __len__(self) -> int:
         return len(self.samples)
 
@@ -150,6 +162,12 @@ class HisFrag20Test:
         if self.transform:
             image = self.transform(image)
         return as_sample_array(image), np.asarray(index, np.int64)
+
+    def raw_image(self, index: int) -> np.ndarray:
+        return np.asarray(open_rgb(self.samples[index]), np.uint8)
+
+    def item_meta(self, index: int):
+        return (np.asarray(index, np.int64),)
 
     def __len__(self) -> int:
         return len(self.samples)

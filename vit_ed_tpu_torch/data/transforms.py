@@ -1,18 +1,26 @@
-"""Image transforms of the scoring and training paths (PIL / numpy).
+"""Image transforms of the scoring and training paths.
 
 The port's copy of the pieces of ``vit_ed_tpu/data/transforms.py`` that
 the hisfrag and DIV2K entries use. Eval: ``open_rgb``, ``resize``,
 ``center_crop``, ``to_tensor``, ``normalize``, ``as_sample_array``,
 ``OneImgEval`` and ``TwoImgSyncEval``. Training: ``random_affine``,
-``shift_scale_rotate`` (both through ``warp_affine``, the numpy affine warp
-with cv2 INTER_LINEAR semantics), ``rgb_shift``, ``random_crop``,
+``shift_scale_rotate`` (both through ``warp_affine``, an affine warp with
+cv2 INTER_LINEAR semantics), ``rgb_shift``, ``random_crop``,
 ``color_jitter``, ``GaussianBlur`` and ``normalize_image``; ``crop`` splits
-an image into the puzzle grid. The JAX package
-also has a native C++ fast path for these; it is bit-exact to the PIL +
-numpy chain below, so the port keeps only the chain (no cv2, no native
-code). The random draws come from Python's ``random`` in the JAX package's
-order, so one seed gives the same augmentations in both. Outputs are NHWC
-numpy arrays, float32 normalized with mean = std = 0.5, or raw uint8 with
+an image into the puzzle grid.
+
+The numeric work runs in the native pipeline (``native/pipeline.cc``,
+built with g++ at the first call) wherever it takes the input: JPEG decode
+(``open_rgb``), the warp, the jitter, the blur, normalize and the fused
+crop -> resize -> normalize of the eval transforms. It is bit-exact against
+the PIL / numpy chain, which stays here as each step's plain version under
+its own name (``open_rgb_plain``, ``warp_affine_plain``, ``jitter_plain``,
+``normalize_image_plain``; the blur's is PIL's filter) and runs only on
+inputs the native code does not take: images that are not RGB (``_native_ok``),
+and the padding cases of the eval crops. The random draws come from
+Python's ``random`` in the JAX package's order and stay in Python, so one
+seed gives the same augmentations in both packages. Outputs are NHWC numpy
+arrays, float32 normalized with mean = std = 0.5, or raw uint8 with
 ``emit_u8``.
 """
 
@@ -25,11 +33,34 @@ from typing import Optional, Tuple
 import numpy as np
 from PIL import Image, ImageFilter
 
+from vit_ed_tpu_torch.native import pipeline as npipe
 
-def open_rgb(path: str) -> Image.Image:
+
+def _native_ok(x) -> bool:
+    """Whether the native pipeline takes ``x``: a PIL image in mode RGB, or
+    (the warp) a u8 HWC array."""
+    if isinstance(x, Image.Image):
+        return x.mode == "RGB"
+    return isinstance(x, np.ndarray) and x.ndim == 3
+
+
+def open_rgb_plain(path: str) -> Image.Image:
     """``Image.open(path).convert("RGB")`` with the file closed afterwards."""
     with Image.open(path) as f:
         return f.convert("RGB")
+
+
+def open_rgb(path: str) -> Image.Image:
+    """``open_rgb_plain`` with .jpg / .jpeg files decoded by the native
+    libjpeg decoder where it decodes as PIL does (``npipe.decode_route``);
+    a stream it rejects, and every other file, goes to PIL."""
+    if (path.lower().endswith((".jpg", ".jpeg"))
+            and npipe.decode_route() == "libjpeg"):
+        with open(path, "rb") as f:
+            arr = npipe.decode_jpeg(f.read())
+        if arr is not None:
+            return Image.fromarray(arr)
+    return open_rgb_plain(path)
 
 
 def to_tensor(img: Image.Image) -> np.ndarray:
@@ -55,16 +86,23 @@ def as_sample_array(image) -> np.ndarray:
     return np.asarray(image, np.float32)
 
 
+def _resize_target(h: int, w: int, size) -> Tuple[int, int]:
+    """(out_h, out_w) of ``resize`` on an h x w image."""
+    if isinstance(size, int):
+        if (w <= h and w == size) or (h <= w and h == size):
+            return h, w
+        if w < h:
+            return int(size * h / w), size
+        return size, int(size * w / h)
+    return size[0], size[1]
+
+
 def resize(img: Image.Image, size, interpolation=Image.BILINEAR) -> Image.Image:
     """torchvision Resize semantics: an int size resizes the SHORTER side."""
-    if isinstance(size, int):
-        w, h = img.size
-        if (w <= h and w == size) or (h <= w and h == size):
-            return img
-        if w < h:
-            return img.resize((size, int(size * h / w)), interpolation)
-        return img.resize((int(size * w / h), size), interpolation)
-    return img.resize((size[1], size[0]), interpolation)
+    h, w = _resize_target(img.height, img.width, size)
+    if (h, w) == (img.height, img.width):
+        return img
+    return img.resize((w, h), interpolation)
 
 
 def center_crop(img: Image.Image, size) -> Image.Image:
@@ -87,7 +125,10 @@ def center_crop(img: Image.Image, size) -> Image.Image:
 
 
 class OneImgEval:
-    """Center-crop (or resize) + normalize a single image.
+    """Center-crop (or resize) + normalize a single image: on an RGB image
+    the native fused crop -> resize -> normalize (``pool_crop`` gives its
+    rectangle and size), else the plain chain (a crop larger than the
+    image pads it first).
 
     ``emit_u8`` skips the host normalize and returns the cropped uint8
     array; the model then normalizes on the device ((x/255 - 0.5)/0.5,
@@ -98,7 +139,29 @@ class OneImgEval:
         self.crop = crop
         self.emit_u8 = emit_u8
 
+    def pool_crop(self, shape_hw):
+        """(crop rect (y0, x0, h, w), output size) of the native fused prep
+        for an image of ``shape_hw``, or None where the plain chain runs
+        (the padding case, or the u8 wire: the prep emits normalized f32).
+        The loader's and the scorer's whole-batch pools read it too."""
+        if self.emit_u8:
+            return None
+        h, w = shape_hw
+        if not self.crop:
+            return (0, 0, h, w), _resize_target(h, w, self.image_size)
+        th, tw = ((self.image_size, self.image_size)
+                  if isinstance(self.image_size, int) else self.image_size)
+        if w < tw or h < th:
+            return None
+        left = int(round((w - tw) / 2.0))
+        top = int(round((h - th) / 2.0))
+        return (top, left, th, tw), (th, tw)
+
     def __call__(self, img):
+        if _native_ok(img):
+            pc = self.pool_crop((img.height, img.width))
+            if pc is not None:
+                return npipe.prep(img, pc[1], crop=pc[0])
         img = (center_crop(img, self.image_size) if self.crop
                else resize(img, self.image_size))
         if self.emit_u8:
@@ -108,21 +171,32 @@ class OneImgEval:
 
 
 class TwoImgSyncEval:
-    """Resize + normalize both images of a pair."""
+    """Resize + normalize both images of a pair (native ``prep`` on RGB)."""
 
     def __init__(self, image_size):
         self.image_size = image_size
 
     def _one(self, img: Image.Image) -> np.ndarray:
+        if _native_ok(img):
+            return npipe.prep(img, _resize_target(img.height, img.width,
+                                                  self.image_size))
         return normalize(to_tensor(resize(img, self.image_size)))
 
     def __call__(self, first_img, second_img):
         return self._one(first_img), self._one(second_img)
 
 
+def normalize_image_plain(img: Image.Image, mean=(0.5, 0.5, 0.5),
+                          std=(0.5, 0.5, 0.5)) -> np.ndarray:
+    return normalize(to_tensor(img), mean, std)
+
+
 def normalize_image(img: Image.Image, mean=(0.5, 0.5, 0.5),
                     std=(0.5, 0.5, 0.5)) -> np.ndarray:
-    return normalize(to_tensor(img), mean, std)
+    """``normalize(to_tensor(img))``, in one native pass on RGB."""
+    if _native_ok(img):
+        return npipe.normalize_u8(np.asarray(img), mean, std)
+    return normalize_image_plain(img, mean, std)
 
 
 def crop(im: Image.Image, n_cols: int, n_rows: int):
@@ -191,13 +265,13 @@ def _reflect101(p: np.ndarray, n: int) -> np.ndarray:
     return np.where(out >= n, per - out, out)
 
 
-def warp_affine(arr: np.ndarray, m, border_value=None) -> np.ndarray:
+def warp_affine_plain(arr: np.ndarray, m, border_value=None) -> np.ndarray:
     """Affine warp of a uint8 image with the forward 2x3 matrix ``m``:
     cv2.warpAffine(INTER_LINEAR) semantics under a fixed float recipe (f32
     row-constant + double product+add coordinates, f32 weight products,
-    left-to-right tap sum, nearest-even rounding), the JAX package's
-    ``_warp_affine_np``. Border REFLECT_101 when ``border_value`` is None,
-    else CONSTANT."""
+    left-to-right tap sum, nearest-even rounding), the numpy mirror of
+    ``native/pipeline.cc::warp_affine_u8``. Border REFLECT_101 when
+    ``border_value`` is None, else CONSTANT."""
     f32, f64 = np.float32, np.float64
     m = np.asarray(m, f64).reshape(2, 3)
     im = _invert_affine(m)
@@ -246,6 +320,13 @@ def warp_affine(arr: np.ndarray, m, border_value=None) -> np.ndarray:
         v = p00 * w00 + p01 * w01 + p10 * w10 + p11 * w11
         out[..., ch] = np.clip(np.rint(v), 0, 255).astype(np.uint8)
     return out[:, :, 0] if arr.ndim == 2 else out
+
+
+def warp_affine(arr: np.ndarray, m, border_value=None) -> np.ndarray:
+    """``warp_affine_plain`` in the native pipeline for an HWC array."""
+    if _native_ok(arr):
+        return npipe.warp_affine(arr, m, border_value)
+    return warp_affine_plain(arr, m, border_value)
 
 
 def shift_scale_rotate(img: Image.Image, shift_limit=0.05, scale_limit=0.15,
@@ -338,9 +419,10 @@ def _jitter_hue_int(arr: np.ndarray, shift: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def _jitter_apply(arr: np.ndarray, ops) -> np.ndarray:
-    """The jitter op sequence on a uint8 RGB array. Brightness, contrast
-    and saturation are PIL ImageEnhance bit-exact (float32 blend with the
+def jitter_plain(arr: np.ndarray, ops) -> np.ndarray:
+    """The jitter op sequence on a uint8 RGB array, the numpy mirror of
+    ``native/pipeline.cc::vt_color_jitter``. Brightness, contrast and
+    saturation are PIL ImageEnhance bit-exact (float32 blend with the
     degenerate image, truncating cast)."""
     f32 = np.float32
     for op, f in ops:
@@ -378,14 +460,17 @@ def color_jitter(img: Image.Image, brightness=0.3, contrast=0.3, saturation=0.3,
     if hue:
         ops.append(("hue", int(random.uniform(-hue, hue) * 255)))
     random.shuffle(ops)
+    if _native_ok(img):
+        return Image.fromarray(npipe.color_jitter(img, ops))
     arr = np.asarray(img, np.uint8)
     if arr.ndim != 3 or arr.shape[2] != 3:
         return img
-    return Image.fromarray(_jitter_apply(arr, ops))
+    return Image.fromarray(jitter_plain(arr, ops))
 
 
 class GaussianBlur:
-    """PIL Gaussian blur with a random radius, applied with probability p."""
+    """PIL Gaussian blur with a random radius, applied with probability p
+    (native box passes on RGB, bit-exact against PIL's filter)."""
 
     def __init__(self, p=0.5, radius_min=0.1, radius_max=2.0):
         self.prob = p
@@ -396,4 +481,6 @@ class GaussianBlur:
         if random.random() > self.prob:
             return img
         radius = random.uniform(self.radius_min, self.radius_max)
+        if _native_ok(img):
+            return Image.fromarray(npipe.gaussian_blur(np.asarray(img), radius))
         return img.filter(ImageFilter.GaussianBlur(radius=radius))

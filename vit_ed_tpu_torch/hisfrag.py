@@ -38,6 +38,7 @@ from vit_ed_tpu_torch.data.hisfrag import HisFrag20Test, Split
 from vit_ed_tpu_torch.data.loader import DataLoader
 from vit_ed_tpu_torch.data.samplers import MPerClassSampler
 from vit_ed_tpu_torch.metrics import get_metrics
+from vit_ed_tpu_torch.ops.gather import gather_rows
 from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
 from vit_ed_tpu_torch.train.engine import Trainer
 from vit_ed_tpu_torch.train.losses import bce_with_logits, masked_bce_with_logits
@@ -188,8 +189,10 @@ class HisfragTrainer(Trainer):
             samples = batch["samples"]
             feats = model.encode(samples)
             tokens = model.prepare_x2(samples)
-            f = feats.index_select(0, batch["gj"].long())
-            t = tokens.index_select(0, batch["gi"].long())
+            # gather_rows: the backward sums each image's pairs in a fixed
+            # order (index_select's CUDA backward adds with atomics)
+            f = gather_rows(feats, batch["gj"].long())
+            t = gather_rows(tokens, batch["gi"].long())
             logits = model.score_tokens(f, t)
             return masked_bce_with_logits(logits.float(), batch["pair_targets"],
                                           batch["pair_mask"],

@@ -253,13 +253,26 @@ def _check_operands(tensors: Sequence[torch.Tensor], ref: torch.Tensor,
                              "and 16-byte aligned data")
 
 
+def _check_out(out: torch.Tensor, shape: Tuple[int, ...],
+               ref: torch.Tensor) -> None:
+    """A caller's output tensor: the shape, type and device the launch
+    would have allocated."""
+    if (tuple(out.shape) != tuple(shape) or out.dtype != ref.dtype
+            or out.device != ref.device):
+        raise ValueError(f"out must be {tuple(shape)} {ref.dtype} on "
+                         f"{ref.device}, got {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}")
+
+
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             cols: Tuple[int, int, int], c: int, num_heads: int,
-            n_q_rows: int, scale: float) -> torch.Tensor:
+            n_q_rows: int, scale: float,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One forward kernel launch. q/k/v are 3-D CUDA tensors (possibly the
     same fused projection) addressed through their strides plus a column
     offset each; a k/v batch of 1 is shared by the whole q batch (batch
-    stride 0). Returns [B, n_q_rows, C]."""
+    stride 0). Writes into ``out`` [B, n_q_rows, C] (allocated when None)
+    and returns it."""
     _check_head_dim(c, num_heads)
     b = q.shape[0]
     n_keys = k.shape[1]
@@ -271,7 +284,11 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def bstride(t):
         return 0 if t.shape[0] == 1 else t.stride(0)
 
-    out = torch.empty((b, n_q_rows, c), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, n_q_rows, c), dtype=q.dtype, device=q.device)
+    else:
+        _check_out(out, (b, n_q_rows, c), q)
+        _check_operands((out,), q, (b,))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
@@ -416,12 +433,16 @@ def _slices(qkv: Sequence[torch.Tensor], cols, c: int, n_q_rows: int):
 
 
 def _forward(layout: str, tensors: Sequence[torch.Tensor], num_heads: int,
-             scale: float) -> torch.Tensor:
+             scale: float, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     qkv, cols, c, n_q_rows = _operands(layout, tensors)
     if qkv[0].is_cuda:
-        return _launch(layout, *qkv, cols, c, num_heads, n_q_rows, scale)
-    return pair_attention_plain(*_slices(qkv, cols, c, n_q_rows), num_heads,
-                                scale)
+        return _launch(layout, *qkv, cols, c, num_heads, n_q_rows, scale, out)
+    res = pair_attention_plain(*_slices(qkv, cols, c, n_q_rows), num_heads,
+                               scale)
+    if out is None:
+        return res
+    _check_out(out, res.shape, res)
+    return out.copy_(res)
 
 
 def _heads_views(layout: str, tensors: Sequence[torch.Tensor],
@@ -457,18 +478,23 @@ def _to_heads(layout: str, x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _heads_forward(layout: str, tensors: Sequence[torch.Tensor],
-                   num_heads: int, scale: float) -> torch.Tensor:
+                   num_heads: int, scale: float,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     q, k, v = _heads_views(layout, tensors, num_heads)
-    if not q.is_cuda:
-        return _from_heads(layout, heads_attention_plain(q, k, v, scale))
     b, h, n_q, d = q.shape
-    # allocated in the returned layout ([B, Sq, H*D] for the packed
-    # wrappers): the kernel writes through the heads view of it
+    # in the returned layout ([B, Sq, H*D] for the packed wrappers): the
+    # kernel writes through the heads view of it
     if layout in ("bhsd", "bhsd_eval"):
         shape = (b, h, n_q, d)
     else:
         shape = (b, n_q, d) if layout == "flat" else (b, n_q, h * d)
-    out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    if out is not None:
+        _check_out(out, shape, q)
+    if not q.is_cuda:
+        res = _from_heads(layout, heads_attention_plain(q, k, v, scale))
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(shape, dtype=q.dtype, device=q.device)
     _launch_heads(layout, q, k, v, _to_heads(layout, out, num_heads), scale)
     return out
 
@@ -531,9 +557,22 @@ class _HeadsAttention(_Attention):
     backward_fn = staticmethod(_heads_backward)
 
 
-def _attend(layout: str, tensors: Sequence[torch.Tensor], num_heads: int,
-            scale: Optional[float]) -> torch.Tensor:
-    """Route a wrapper call by THE DISPATCH RULE of the module docstring."""
+def _attend(layout: str, tensors: Sequence[torch.Tensor],
+            num_heads: Optional[int], scale: Optional[float],
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Route a wrapper call by THE DISPATCH RULE of the module docstring.
+    Every wrapper is this call on its layout, so the rules of a layout (its
+    head count, the batches it accepts) live here: ``num_heads`` is the
+    packed layouts' head count; the 4-D layouts read theirs from q [B, H,
+    Sq, D] and the flat one has one head per row. ``out``, outside autograd
+    only, is the tensor the forward writes into (the card tests fill it
+    with NaN first, so that an element the kernel never stores reads NaN)."""
+    if layout in ("bhsd", "bhsd_eval"):
+        num_heads = tensors[0].shape[1]
+    elif layout == "flat":
+        num_heads = 1
+    if layout == "kv_shared" and tensors[1].shape[0] != 1:
+        raise ValueError(f"shared kv must have batch 1, got {tensors[1].shape[0]}")
     if layout != "kv_shared" and any(t.shape[0] != tensors[0].shape[0]
                                      for t in tensors):
         # a broadcast k/v would need its gradient summed over the batch,
@@ -556,6 +595,8 @@ def _attend(layout: str, tensors: Sequence[torch.Tensor], num_heads: int,
         scale = 1.0 / math.sqrt(d)
     function = _PairAttention if pair else _HeadsAttention
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if out is not None:
+            raise ValueError("out= is for calls outside autograd")
         if layout in EVAL_ONLY_LAYOUTS:
             raise RuntimeError(
                 "fused_attention_packed_kv_shared and fused_attention_heads "
@@ -563,7 +604,7 @@ def _attend(layout: str, tensors: Sequence[torch.Tensor], num_heads: int,
                 "under no_grad, or use fused_attention_packed_kv / "
                 "fused_attention for training")
         return function.apply(layout, num_heads, scale, *tensors)
-    return function.forward_fn(layout, tensors, num_heads, scale)
+    return function.forward_fn(layout, tensors, num_heads, scale, out)
 
 
 # ---------------------------------------------------------------------------
@@ -594,8 +635,6 @@ def fused_attention_packed_kv_shared(q: torch.Tensor, kv: torch.Tensor,
     batch [B, Sq, C] (the row-sharded O(N^2) scan chunk); equals
     ``fused_attention_packed_kv`` on the materialised broadcast.
     Eval-only: raises for an input that requires grad."""
-    if kv.shape[0] != 1:
-        raise ValueError(f"shared kv must have batch 1, got {kv.shape[0]}")
     return _attend("kv_shared", (q, kv), num_heads, scale)
 
 
@@ -618,18 +657,18 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v on q [B, H, Sq, D], k/v [B, H, Sk, D] ->
     [B, H, Sq, D], differentiable (the 4-D route)."""
-    return _attend("bhsd", (q, k, v), q.shape[1], scale)
+    return _attend("bhsd", (q, k, v), None, scale)
 
 
 def fused_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """``fused_attention`` without a VJP. Eval-only: raises for an input
     that requires grad."""
-    return _attend("bhsd_eval", (q, k, v), q.shape[1], scale)
+    return _attend("bhsd_eval", (q, k, v), None, scale)
 
 
 def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
     """``fused_attention`` on batch and heads flattened together: q
     [B*H, Sq, D], k/v [B*H, Sk, D] -> [B*H, Sq, D], differentiable."""
-    return _attend("flat", (q, k, v), 1, scale)
+    return _attend("flat", (q, k, v), None, scale)

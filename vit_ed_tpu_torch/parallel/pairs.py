@@ -19,7 +19,10 @@ token cache is built (a finished scan builds nothing), and the cache is
 filled into one preallocated tensor (no 2x transient from concatenating
 parts). Pair chunks are padded to a fixed size with repeats of their first
 column, as the JAX scorer's fixed-shape programs are, so a pair's score
-does not depend on which chunk it lands in.
+does not depend on which chunk it lands in. Images are loaded one batch
+ahead on a prefetch thread: where the dataset and its eval transform serve
+the whole-batch protocol (``data/loader.py``), loader threads decode and
+one native ``PipelinePool`` call crops, resizes and normalizes the batch.
 
 Not ported in slice 1 (raise, see ROADMAP): several processes
 (``world_size > 1``), ``slab_on_disk``, ``assemble=False``, the
@@ -40,6 +43,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from vit_ed_tpu_torch.data.loader import pool_batch, pools_batches
+from vit_ed_tpu_torch.native.pipeline import PipelinePool
 
 _KV_BLOCK_BUDGET = 4 << 30
 
@@ -178,9 +184,19 @@ class PairwiseScorer:
             token_cache = self._token_cache_bytes(n) <= budget * (1 << 30)
 
         pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
+        # every load runs on this one thread, so the PipelinePool under it
+        # is never entered from two threads at once
         prefetch = ThreadPoolExecutor(max_workers=1)
+        native = (PipelinePool(max(num_workers, 1))
+                  if num_workers > 0 and pools_batches(dataset) else None)
 
         def load(indices):
+            if native is not None:
+                # the threads decode; one pool call crops, resizes and
+                # normalizes the whole batch (the transform image by image
+                # where the pool cannot: padding, ragged sizes)
+                raws = list(pool.map(dataset.raw_image, indices))
+                return pool_batch(native, dataset.transform, raws, pool.map)
             return np.stack(list(pool.map(lambda i: dataset[i][0], indices)))
 
         def submit(lo, hi):
@@ -251,6 +267,8 @@ class PairwiseScorer:
         finally:
             prefetch.shutdown()
             pool.shutdown()
+            if native is not None:
+                native.close()
         self.scan_seconds = time.time() - start
 
         # mirror the upper triangle into the lower one
