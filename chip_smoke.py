@@ -77,7 +77,21 @@ nothing from the JAX package. Phases, each printing its own lines:
     (seconds, libjpeg linked or not, the decoder used, the CPU it was built
     for), then native against plain bit for bit on 16 JPEGs of ~600 x 700
     px: decode, the hisfrag train chain at 512, the eval crop and the
-    PipelinePool batch.
+    PipelinePool batch;
+15. puzzle evaluation end to end: ``python -m vit_ed_tpu_torch.evaluation``
+    (in process, bf16, configs/puzzle/puzzle_eval_4bin_patch8_64.yaml,
+    phase 13's checkpoint) on synthetic Cho / McGill / BGU puzzles of
+    980 x 644 px made from a seed (two PNG and one JPEG each; 150 pieces,
+    22,350 ordered pairs), launch counts (by shape, against the expected
+    schedule) reset before and read after; pairs/s of ``score_dense`` and
+    the ms per puzzle by stage, the accuracies; then score_dense against
+    256 direct pair forwards (1e-2), the mixed-chunk schedule against the
+    row-shared one (1e-2; the per-pair kv layout), the card in bf16 against
+    the CPU in f32 on a 3 x 3 puzzle (5e-2), the native solver against the
+    Python one (equal placements and best buddies), the scan's mixed-chunk
+    fallback at patch16_512 (N = 16) against its row-sharded slab (1e-2;
+    the pair kv kernel), one score_dense under the profiler, and the 4-D
+    forward at the evaluation's shapes against plain (2e-2), timed.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -1556,7 +1570,7 @@ def phase_puzzle_path(tmp):
                     "PNG decode + flips, warp, crops and two resizes")
     del trainer
     torch.cuda.empty_cache()
-    return shapes
+    return shapes, ckpt_path
 
 
 def phase_heads_scan(tmp):
@@ -1593,6 +1607,349 @@ def phase_heads_scan(tmp):
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# puzzle evaluation: python -m vit_ed_tpu_torch.evaluation
+# ---------------------------------------------------------------------------
+
+EVAL_CFG = os.path.join(ROOT, "configs", "puzzle", "puzzle_eval_4bin_patch8_64.yaml")
+# BGU's 805-piece images at 28 px (35 x 23 pieces) are 980 x 644 px; cut at
+# 64 px they give 15 x 10 = 150 pieces, 22,350 ordered pairs
+EVAL_W, EVAL_H, EVAL_PIECES = 980, 644, 150
+EVAL_SUBSETS = ("Cho", "McGill", "BGU")
+EVAL_FILES = ("0.png", "1.png", "2.jpg")   # two PNG and one JPEG per subset
+# the evaluation's forward shapes at B = PUZZLE_BATCH: (tag, layout, S, Sk)
+EVAL_TIMED = (("encoder", "qkv", 64, 64), ("decoder", "qkv", 65, 65),
+              ("cls", "qkv_cls", 65, 65), ("cross", "kv_shared", 65, 64),
+              ("cross_cls", "kv_shared", 1, 64))
+
+
+def write_puzzles(root, seed=0):
+    """Synthetic Cho/, McGill/ and BGU/ puzzles made from a seed: smooth
+    colour fields of EVAL_W x EVAL_H px, ``EVAL_FILES`` in each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in EVAL_SUBSETS:
+        os.makedirs(os.path.join(root, sub))
+        for name in EVAL_FILES:
+            small = rng.integers(0, 256, size=(EVAL_H // 28, EVAL_W // 28, 3), dtype=np.uint8)
+            img = Image.fromarray(small).resize((EVAL_W, EVAL_H), Image.BICUBIC)
+            img.save(os.path.join(root, sub, name), **({"quality": 95}
+                                                       if name.endswith(".jpg") else {}))
+
+
+def eval_shapes(n, batch=PUZZLE_BATCH, c_depth=8, depth=8):
+    """The 4-D launches of one ``score_dense`` over n pieces, (counter, B,
+    Sq, Sk) -> count: the encoder (S = 64) and stream 2's block-0
+    self-attention (S = 65) once per batch of pieces; per 128-pair chunk of
+    one x1 row, the self-attention of decoder blocks 1 .. 6, the last
+    block's CLS row, and the shared-kv cross-attention of every block."""
+    shapes = {}
+
+    def add(key, count):
+        shapes[key] = shapes.get(key, 0) + count
+
+    for lo in range(0, n, batch):
+        b = min(batch, n - lo)
+        add(("heads_qkv", b, 64, 64), depth)
+        add(("heads_qkv", b, 65, 65), 1)
+    chunk = min(batch, n)
+    chunks = n * -(-(n - 1) // chunk)
+    add(("heads_qkv", chunk, 65, 65), chunks * (c_depth - 2))
+    add(("heads_qkv_cls", chunk, 1, 65), chunks)
+    add(("heads_kv_shared", chunk, 65, 64), chunks * (c_depth - 1))
+    add(("heads_kv_shared", chunk, 1, 64), chunks)
+    return shapes
+
+
+def eval_kernel_times(gen):
+    """The 4-D forward at the evaluation's shapes (B = PUZZLE_BATCH, bf16):
+    kernel, plain and SDPA times, the bound, and the kernel's reading
+    against plain (max |out - plain| / max |plain|)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for tag, layout, s, sk in EVAL_TIMED:
+        t = heads_inputs(gen, torch.bfloat16, PUZZLE_BATCH, s, sk)
+        tensors = [t[n] for n in HEADS_INPUTS[layout]]
+        q, k, v = A._heads_views(layout, tensors, HH)
+        sq = q.shape[2]
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        with torch.no_grad():
+            err = forward_reading(heads_call(layout, tensors), heads_plain(layout, tensors))[1]
+            r = {"ms": timed(lambda: heads_call(layout, tensors)),
+                 "plain_ms": timed(lambda: heads_plain(layout, tensors)),
+                 "library_ms": timed(lambda: sdpa(qc, kc, vc)),
+                 "max_abs_err": err,
+                 "shape": f"B={PUZZLE_BATCH} H={HH} Sq={sq} Sk={sk} d={HD} bf16"}
+        r["bound_ms"], r["bound_by"] = heads_bound("forward", PUZZLE_BATCH, sq, sk,
+                                                   shared=layout == "kv_shared")
+        res[tag] = (layout, sq, sk, r)
+        print(f"  {tag:9s} {layout:9s} {r['shape']}: {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} {r['bound_by']}, plain {r['plain_ms']:.4f}, sdpa "
+              f"{r['library_ms']:.4f}); against plain {err:.3e} (tol 2e-2)", flush=True)
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"4-D {layout} forward disagrees with plain at {r['shape']}")
+        del t, tensors, q, k, v, qc, kc, vc
+    return res
+
+
+def puzzle_eval_holds(argv, first, records, work):
+    """The checks of phase 15 outside its counted run: score_dense against
+    direct pair forwards, row-shared against mixed, the card against the
+    CPU on a 3 x 3 puzzle, and the native solver against the Python one."""
+    import copy
+
+    from PIL import Image
+
+    from vit_ed_tpu_torch import evaluation
+    from vit_ed_tpu_torch.data.pieces import PiecesImages
+    from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+    from vit_ed_tpu_torch.solver.driver import paikin_tal_driver
+    from vit_ed_tpu_torch.solver.importer import Puzzle
+    from vit_ed_tpu_torch.train.checkpoint import load_pretrained
+
+    def model_on(device, extra=()):
+        config = evaluation.parse_option(argv + list(extra))[1]
+        return load_pretrained(build_model(config, torch.device(device)),
+                               config.MODEL.PRETRAINED).eval(), config
+
+    model, config = model_on("cuda")
+    puzzle = Puzzle(0, first, 64, starting_piece_id=0, erosion=config.DATA.EROSION_RATIO)
+    transform = TwoImgSyncEval(64)
+    imgs = PiecesImages(puzzle.pieces, transform=transform).all_images()
+    n = len(imgs)
+    row = PairwiseScorer(model, num_outputs=4, pair_chunk=PUZZLE_BATCH)
+    logits = row.score_dense(imgs, batch_size=PUZZLE_BATCH)
+    A.reset_launch_counts()
+    mixed = PairwiseScorer(model, num_outputs=4, pair_chunk=PUZZLE_BATCH,
+                           row_shared=False).score_dense(imgs, batch_size=PUZZLE_BATCH)
+    torch.cuda.synchronize()
+    mixed_counts = nonzero(A.launches)
+    mixed_shapes = sorted((k[0], k[1], k[3], k[4], v) for k, v in A.launches_by_shape.items())
+    gap_mixed = float(np.abs(mixed - logits).max())
+
+    rng = np.random.default_rng(5)
+    pi = rng.integers(0, n, 256)
+    pj = (pi + rng.integers(1, n, 256)) % n
+    x = torch.from_numpy(np.stack([np.stack([imgs[i], imgs[j]]) for i, j in zip(pi, pj)]))
+    with torch.inference_mode():
+        direct = torch.cat([model(x[lo:lo + PUZZLE_BATCH].cuda()).float().cpu()
+                            for lo in range(0, len(x), PUZZLE_BATCH)]).numpy()
+    gap_direct = float(np.abs(direct - logits[pi, pj]).max())
+
+    # the CPU in float32 against the card in bf16 on a 3 x 3 puzzle
+    small = os.path.join(work, "small.png")
+    Image.open(first).crop((0, 0, 192, 192)).save(small)
+    pieces3 = Puzzle(0, small, 64, erosion=config.DATA.EROSION_RATIO).pieces
+    imgs3 = PiecesImages(pieces3, transform=transform).all_images()
+    cpu_model, _ = model_on("cpu", ["--disable_amp"])
+    on_cpu = PairwiseScorer(cpu_model, num_outputs=4, pair_chunk=PUZZLE_BATCH).score_dense(imgs3)
+    on_card = row.score_dense(imgs3)
+    gap_cpu = float(np.abs(on_card - on_cpu).max())
+    print(f"  holds on {os.path.basename(first)} ({n} pieces, {n * (n - 1)} pairs): "
+          f"score_dense against {len(pi)} direct pair forwards max gap "
+          f"{gap_direct:.3e} (tol 1e-2); row_shared=False against row_shared=True "
+          f"{gap_mixed:.3e} (tol 1e-2), launches of the mixed schedule {mixed_counts}, "
+          f"by shape (counter, B, Sq, Sk, launches) {mixed_shapes}; 3 x 3 puzzle, "
+          f"card bf16 against CPU f32 {gap_cpu:.3e} (tol 5e-2, |logits| up to "
+          f"{np.abs(on_cpu).max():.3f})", flush=True)
+    if not (gap_direct <= 1e-2 and gap_mixed <= 1e-2 and gap_cpu <= 5e-2
+            and np.isfinite(logits).all() and logits.shape == (n, n, 4)):
+        raise AssertionError("score_dense disagrees with its references")
+    if not (mixed_counts.get("heads_kv", 0) > 0 and "heads_kv_shared" not in mixed_counts
+            and all(k.startswith("heads_") for k in mixed_counts)):
+        raise AssertionError(f"the mixed schedule missed the per-pair kv layout: {mixed_counts}")
+
+    # the native solver against the Python one on the first puzzle's distances
+    rec = records[0]
+    solved, seconds = {}, {}
+    for native in (True, False):
+        t0 = time.time()
+        solved[native] = paikin_tal_driver(
+            copy.deepcopy(rec["puzzle"].pieces), 64, None, puzzle.grid_size,
+            distances=rec["distances"], use_native=native)
+        seconds[native] = time.time() - t0
+
+    def placed(p):
+        return sorted((q.original_piece_id, q.location, q.rotation.value) for q in p.pieces)
+
+    def buddies(p):
+        return sorted((i, s.value, j, t.value) for i, s, j, t in p.best_buddy_pairs)
+
+    same = (placed(solved[True]) == placed(solved[False])
+            and buddies(solved[True]) == buddies(solved[False]))
+    print(f"  solver on {os.path.basename(rec['image'])}'s distances: native "
+          f"{seconds[True] * 1e3:.1f} ms, Python {seconds[False] * 1e3:.1f} ms; "
+          f"{len(buddies(solved[True]))} best-buddy pairs; placements and best "
+          f"buddies equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("the native solver disagrees with the Python solver")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return logits, imgs, seconds
+
+
+def dense_breakdown(imgs):
+    """Where one score_dense of 150 pieces goes: host wall against the
+    profiler's device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_ed_tpu_torch import evaluation
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+
+    config = evaluation.parse_option(["--cfg", EVAL_CFG, "--pretrained", "none"])[1]
+    torch.manual_seed(config.SEED)
+    model = build_model(config, torch.device("cuda")).eval()
+    scorer = PairwiseScorer(model, num_outputs=4, pair_chunk=PUZZLE_BATCH)
+    scorer.score_dense(imgs)
+    t0 = time.time()
+    scorer.score_dense(imgs)
+    torch.cuda.synchronize()
+    plain_wall = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        scorer.score_dense(imgs)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    rows = device_rows(prof, 1)
+    busy = sum(r[1] for r in rows)
+    print(f"  profiler, one score_dense of {len(imgs)} pieces: device time {busy:.1f} ms "
+          f"of {wall:.1f} ms wall under the profiler, {plain_wall:.1f} ms without it "
+          f"(the device {100 * (1 - busy / plain_wall):.1f}% idle; "
+          f"{sum(r[2] for r in rows)} launches)"
+          + ("" if rows else " (not measured: the profiler saw no device time)"))
+    for key, t, cnt in rows[:12]:
+        print(f"    {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}%  x{cnt:<5d} {key[:90]}")
+    del model, scorer
+    torch.cuda.empty_cache()
+
+
+def flagship_fallback():
+    """score_dataset at patch16_512 on N = 16 images: the row-sharded slab
+    against the mixed-chunk fallback (K/V budget forced to 0)."""
+    from vit_ed_tpu_torch.parallel import pairs as P
+
+    config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=None))
+    torch.manual_seed(config.SEED)
+    model = build_model(config, torch.device("cuda")).eval()
+    rng = np.random.default_rng(6)
+
+    class Images:
+        imgs = rng.normal(size=(16, 512, 512, 3)).astype(np.float32)
+
+        def __getitem__(self, i):
+            return self.imgs[i], i
+
+        def __len__(self):
+            return len(self.imgs)
+
+    s_row = P.PairwiseScorer(model, pair_chunk=8).score_dataset(Images(), 8, num_workers=0)
+    warned = []
+    logger = types.SimpleNamespace(info=lambda m: None, warning=warned.append)
+    budget = P._KV_BLOCK_BUDGET
+    P._KV_BLOCK_BUDGET = 0
+    A.reset_launch_counts()
+    try:
+        s_mixed = P.PairwiseScorer(model, pair_chunk=8).score_dataset(
+            Images(), 8, num_workers=0, logger=logger)
+    finally:
+        P._KV_BLOCK_BUDGET = budget
+    torch.cuda.synchronize()
+    counts = nonzero(A.launches)
+    gap = float(np.abs(s_mixed.astype(np.float32) - s_row.astype(np.float32)).max())
+    print(f"  patch16_512, N = 16, score_dataset: the mixed-chunk fallback against the "
+          f"row-sharded slab max gap {gap:.3e} (tol 1e-2); fallback warned "
+          f"{bool(warned)}; its launches {counts}", flush=True)
+    if not (gap <= 1e-2 and warned and counts.get("kv", 0) > 0
+            and "kv_shared" not in counts and np.isfinite(s_mixed).all()):
+        raise AssertionError("the mixed-chunk fallback disagrees or missed the pair kv kernel")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_puzzle_eval(tmp, ckpt_path, gen):
+    """Phase 15: ``python -m vit_ed_tpu_torch.evaluation`` at full width on
+    150-piece puzzles, with the checkpoint of phase 13."""
+    from vit_ed_tpu_torch import evaluation
+
+    print(f"== phase 15: puzzle evaluation, python -m vit_ed_tpu_torch.evaluation "
+          f"(pjs patch8_64, bf16, batch {PUZZLE_BATCH}) on {len(EVAL_FILES)} synthetic "
+          f"{EVAL_W} x {EVAL_H} puzzles of {EVAL_PIECES} pieces in each of "
+          f"{', '.join(EVAL_SUBSETS)}", flush=True)
+    card = card_line()
+    data, work = os.path.join(tmp, "puzzles"), os.path.join(tmp, "eval_cwd")
+    write_puzzles(data)
+    os.makedirs(work)
+    argv = ["--cfg", EVAL_CFG, "--data-path", data, "--pretrained", ckpt_path,
+            "--output", os.path.join(tmp, "out"), "--tag", "eval"]
+    cwd = os.getcwd()
+    os.chdir(work)        # the entry writes output/reconstructed/<subset>/ here
+    A.reset_launch_counts()
+    t0 = time.time()
+    try:
+        records = evaluation.main(argv)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, shapes = dict(A.launches), dict(A.launches_by_shape)
+
+    n_pairs = sum(r["pairs"] for r in records)
+    stages = {k: np.asarray([r["seconds"][k] for r in records]) * 1e3
+              for k in records[0]["seconds"]}
+    rate = n_pairs / (stages["score"].sum() / 1e3)
+    rate_all = n_pairs / ((stages["score"].sum() + stages["prepare"].sum()) / 1e3)
+    print(f"  {card}: {len(records)} puzzles, {records[0]['pieces']} pieces, "
+          f"{records[0]['pairs']} ordered pairs each; score_dense {rate:.1f} pairs/s "
+          f"(score stage), {rate_all:.1f} pairs/s with encoder + K/V + prepare (host "
+          f"clock, each stage ending in synchronize()); {wall:.1f}s for the entry "
+          f"with model build and checkpoint load", flush=True)
+    median_rate = records[0]["pairs"] / np.median(stages["score"]) * 1e3
+    print(f"  {card}: ms per puzzle by stage, median (min-max; the first puzzle, which "
+          f"also builds the native libraries it reads with): " + "; ".join(
+              f"{k} {np.median(v):.1f} ({v.min():.1f}-{v.max():.1f}; {v[0]:.1f})"
+              for k, v in stages.items())
+          + f"; score_dense {median_rate:.1f} pairs/s at the median puzzle", flush=True)
+    for sub in EVAL_SUBSETS:
+        result, perfect = next(r["results"] for r in records if r["subset"] == sub)
+        print(f"  {card}: {sub} accuracies " + ", ".join(
+            f"{k} {np.mean(v):.4f}" for k, v in result.items()) + f", Perfect {perfect}",
+            flush=True)
+    by_shape = sorted((k[0], k[1], k[3], k[4], v) for k, v in shapes.items())
+    print(f"  launches {nonzero(counts)}; by shape (counter, B, Sq, Sk, launches) "
+          f"{by_shape}", flush=True)
+
+    want = {}
+    for r in records:
+        for (name, b, n_q, n_k), v in eval_shapes(r["pieces"]).items():
+            key = (name, b, HH, n_q, n_k, HD)
+            want[key] = want.get(key, 0) + v
+    out_dir = os.path.join(work, "output", "reconstructed")
+    written = all(os.path.exists(os.path.join(out_dir, sub, f"{pre}{name}"))
+                  for sub in EVAL_SUBSETS for name in EVAL_FILES for pre in ("", "accuracy_"))
+    if not (len(records) == len(EVAL_SUBSETS) * len(EVAL_FILES) and written
+            and all(r["pieces"] == EVAL_PIECES for r in records)):
+        raise AssertionError("the evaluation did not cut, solve and save every puzzle")
+    for r in records:
+        result, perfect = r["results"]
+        if not all(0.0 <= x <= 1.0 for v in result.values() for x in v):
+            raise AssertionError(f"accuracies out of range: {result}")
+        if not np.isfinite(r["distances"]).all():
+            raise AssertionError("distances not finite")
+    if shapes != want:
+        raise AssertionError(f"unexpected launches of the evaluation: {by_shape}")
+    if any(v for k, v in counts.items() if not k.startswith("heads_")):
+        raise AssertionError(f"the evaluation launched a pair kernel: {nonzero(counts)}")
+
+    first = os.path.join(data, EVAL_SUBSETS[0], EVAL_FILES[0])
+    _logits, imgs, _ = puzzle_eval_holds(argv, first, records, work)
+    flagship_fallback()
+    dense_breakdown(imgs)
+    times = eval_kernel_times(gen)
+    return shapes, times, len(records)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -1626,8 +1983,9 @@ def main():
         heads_err = phase_heads_vs_plain(gen)
         heads_times = phase_heads_times(gen)
         phase_puzzle_model(tmp)
-        puzzle_shapes = phase_puzzle_path(tmp)
+        puzzle_shapes, puzzle_ckpt = phase_puzzle_path(tmp)
         scan32_shapes = phase_heads_scan(tmp)
+        eval_shapes_run, eval_times, n_puzzles = phase_puzzle_eval(tmp, puzzle_ckpt, gen)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -1701,6 +2059,15 @@ def main():
         "replaces": HEADS_REPLACES["forward"],
         "launches": launched(scan32_shapes, "heads_kv_shared", 1025, 1024),
         "max_abs_err": heads_err["kv_shared"], **heads_times["kv_shared@scan"]})
+    # the evaluation's forwards (phase 15): one row per shape, ``launches``
+    # over all its puzzles at that (Sq, Sk), the times at B = PUZZLE_BATCH
+    for tag, (layout, n_q, n_k, r) in eval_times.items():
+        kernels.append({
+            "name": f"heads_attention_{layout}_eval_{tag}", "route": "cuda",
+            "source": HEADS_SOURCE, "replaces": HEADS_REPLACES["forward"],
+            "launches": launched(eval_shapes_run, f"heads_{layout}", n_q, n_k), **r})
+    print(f"  the evaluation's launches per puzzle by shape: " + "; ".join(
+        f"{k['name']} {k['launches'] / n_puzzles:.0f}" for k in kernels[-len(eval_times):]))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its main path")

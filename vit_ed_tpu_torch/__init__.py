@@ -9,8 +9,9 @@ metrics, utils) are its own copies.
 This package today: the row-sharded O(N^2) writer-retrieval scoring path
 of ViT-ED and its mined-pair training
 (``python -m vit_ed_tpu_torch.hisfrag --mode train|eval|test``), the DIV2K
-puzzle-pair entry (``python -m vit_ed_tpu_torch.main``), and their input
-pipeline in native C++.
+puzzle-pair entry (``python -m vit_ed_tpu_torch.main``), puzzle evaluation
+with the Paikin-Tal solver (``python -m vit_ed_tpu_torch.evaluation``), and
+their input pipeline in native C++.
 
   device     -- ``resolve_device``: CUDA unless the caller asks for the CPU
   config     -- YAML config tree (same keys as vit_ed_tpu.config)
@@ -18,11 +19,16 @@ pipeline in native C++.
                 backward) + plain versions, bf16 GELU with its closed-form
                 derivative, the pair gather with a fixed-order backward
   models     -- ViT-ED (timm key layout), JAX-param conversion, factory
-  parallel   -- the single-process row-sharded pair scorer
+  parallel   -- the single-process pair scorer (row-sharded and
+                mixed-chunk schedules, ``score_dense`` for puzzle pieces)
+  solver     -- the Paikin-Tal puzzle solver, its accuracies, and image
+                reading / LAB conversion equal to OpenCV's without OpenCV
   train      -- losses, schedules + optimizers, checkpoints, the Trainer
-  data       -- HisFrag20 and DIV2K datasets, transforms, samplers, loader
-  native     -- the input pipeline in C++ (g++ at first use, ctypes):
-                decode, warps, jitter, blur, fused crop/resize/normalize
+  data       -- HisFrag20 and DIV2K datasets, puzzle pieces, transforms,
+                samplers, loader
+  native     -- C++ built with g++ at first use (ctypes): the input
+                pipeline (decode, warps, jitter, blur, fused
+                crop/resize/normalize) and the solver's placement core
   metrics    -- wi19 retrieval and classification metrics
 """
 

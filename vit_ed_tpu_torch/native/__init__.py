@@ -1,3 +1,4 @@
-"""The port's native (C++) host code: the input pipeline
-(``pipeline.cc``), built with g++ at its first call by ``ops/_build.py``
-and bound with ctypes in ``pipeline.py``."""
+"""The port's native (C++) host code, built with g++ at its first call by
+``ops/_build.py`` and bound with ctypes: the input pipeline (``pipeline.cc``
+in ``pipeline.py``) and the Paikin-Tal placement core (``paikin_tal.cc`` in
+``solver.py``)."""

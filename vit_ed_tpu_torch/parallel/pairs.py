@@ -14,6 +14,13 @@ on the JAX package's row-sharded schedule:
 - finished row blocks are written to ``.npz`` files, and a rerun with the
   same output directory skips them (resume).
 
+Where a row block's K/V would pass the 4 GiB budget, ``score_dataset``
+falls back to the JAX scorer's mixed-chunk schedule, as ``row_shared=False``
+asks for always: each pair chunk gathers its own x1 rows (encoder features,
+or with ``use_kv_cache`` their K/V) and x2 tokens (``score_pairs_block``).
+``score_dense`` scores all ordered pairs of a modest image set (the pieces
+of one puzzle) on either schedule.
+
 Changes from the JAX scorer, by design: the resume check runs BEFORE the
 token cache is built (a finished scan builds nothing), and the cache is
 filled into one preallocated tensor (no 2x transient from concatenating
@@ -24,9 +31,9 @@ ahead on a prefetch thread: where the dataset and its eval transform serve
 the whole-batch protocol (``data/loader.py``), loader threads decode and
 one native ``PipelinePool`` call crops, resizes and normalizes the batch.
 
-Not ported in slice 1 (raise, see ROADMAP): several processes
-(``world_size > 1``), ``slab_on_disk``, ``assemble=False``, the
-mixed-chunk schedule and int8 scoring.
+Not ported yet (raise, see ROADMAP): several processes
+(``world_size > 1``), ``slab_on_disk``, ``assemble=False`` and int8
+scoring.
 
 The tuning constants (64 rows per host fetch, 64-pair chunks at 1024+
 tokens, the 4 GiB token-cache budget) are the JAX scorer's, which were
@@ -55,14 +62,21 @@ class PairwiseScorer:
 
     Args:
         model: a ViTED on its device (eval mode is set here).
-        num_outputs: logits per pair (1 for writer retrieval).
-        pair_chunk: pairs per ``score_tokens_row`` call (capped at 64 for
-            1024+ token contexts, as the JAX scorer does).
+        num_outputs: logits per pair (1 for writer retrieval, 4 for the
+            puzzle bins).
+        pair_chunk: pairs per decoder call (the row-shared schedule caps it
+            at 64 for 1024+ token contexts, as the JAX scorer does).
         dtype: numpy dtype of the score matrix.
+        use_kv_cache: on the mixed-chunk schedule, gather each pair's x1
+            K/V from ``context_kv_cache`` (else its encoder features, whose
+            K/V every cross block projects per pair).
+        row_shared: the row-sharded schedule (every chunk shares one x1
+            row); False asks for the mixed-chunk schedule everywhere.
     """
 
     def __init__(self, model, num_outputs: int = 1, pair_chunk: int = 512,
-                 dtype=np.float16, int8: bool = False):
+                 dtype=np.float16, use_kv_cache: bool = False,
+                 row_shared: bool = True, int8: bool = False):
         if int8:
             raise NotImplementedError(
                 "int8 scoring is not ported yet (ROADMAP queue A item 9)")
@@ -71,10 +85,15 @@ class PairwiseScorer:
         self.num_outputs = num_outputs
         self.pair_chunk = pair_chunk
         self.dtype = dtype
+        self.use_kv_cache = use_kv_cache
+        self.row_shared = row_shared and not use_kv_cache
         # (row, chunk) segments scored between two device->host fetches
         self.rows_per_dispatch = 64
         self.pairs_done = 0       # pairs scored by the last score_dataset
         self.scan_seconds = 0.0   # its wall-clock time (resumed blocks excluded)
+        # the last score_dense's host seconds: encoder + K/V + x2 prepare,
+        # then the pair scores (each ends with the device's work done)
+        self.dense_seconds = {"prepare": 0.0, "score": 0.0}
 
     # ------------------------------------------------------------------
     def _kv_block_bytes(self, n_rows: int) -> int:
@@ -89,6 +108,46 @@ class PairwiseScorer:
 
     def _to_device(self, imgs: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def score_pairs_block(self, context: torch.Tensor, tokens: torch.Tensor,
+                          pair_i: np.ndarray, pair_j: np.ndarray) -> np.ndarray:
+        """The mixed-chunk schedule: score the pairs (pair_i[k], pair_j[k])
+        in chunks of ``pair_chunk``, each pair gathering its own x1 row.
+        ``context`` is the rows' ``context_kv_cache`` ([L, R, Sk, 2C]) with
+        ``use_kv_cache``, else their encoder features ([R, Sk, C]);
+        ``tokens`` are ``prepare_x2_scan`` outputs. Returns
+        [len(pair_i), num_outputs] float32."""
+        n_pairs = len(pair_i)
+        out = np.empty((n_pairs, self.num_outputs), np.float32)
+        chunk = max(self.pair_chunk, 1)
+        bounds = [(lo, min(lo + chunk, n_pairs)) for lo in range(0, n_pairs, chunk)]
+        for g in range(0, len(bounds), self.rows_per_dispatch):
+            grp = bounds[g:g + self.rows_per_dispatch]
+            logits = []
+            for lo, hi in grp:
+                # a short chunk repeats its first pair
+                pi = np.full(chunk, pair_i[lo], np.int64)
+                pj = np.full(chunk, pair_j[lo], np.int64)
+                pi[: hi - lo] = pair_i[lo:hi]
+                pj[: hi - lo] = pair_j[lo:hi]
+                ti = torch.from_numpy(pi).to(self.device)
+                t = tokens.index_select(0, torch.from_numpy(pj).to(self.device))
+                if self.use_kv_cache:
+                    logits.append(self.model.score_tokens_kv(
+                        context.index_select(1, ti), t))
+                else:
+                    logits.append(self.model.score_tokens_scan(
+                        context.index_select(0, ti), t))
+            scores = torch.stack(logits).float().cpu().numpy()
+            for k, (lo, hi) in enumerate(grp):
+                out[lo:hi] = scores[k, : hi - lo]
+        return out
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -145,13 +204,16 @@ class PairwiseScorer:
                 "slab_on_disk / assemble=False are not ported yet (ROADMAP "
                 "queue A item 7)")
         n = len(dataset)
+        row_shared = self.row_shared
         kv_bytes = self._kv_block_bytes(batch_size)
-        if kv_bytes > _KV_BLOCK_BUDGET:
-            raise NotImplementedError(
-                f"the context_kv block for {batch_size} rows would take "
-                f"{kv_bytes / (1 << 30):.1f} GiB; the mixed-chunk schedule "
-                f"the JAX scorer falls back to is not ported (ROADMAP) — "
-                f"reduce the batch size")
+        if row_shared and kv_bytes > _KV_BLOCK_BUDGET:
+            row_shared = False
+            if logger:
+                logger.warning(
+                    f"row-sharded schedule disabled: context_kv block for "
+                    f"{batch_size} rows would take {kv_bytes / (1 << 30):.1f} "
+                    f"GiB; using the mixed-chunk schedule (reduce batch_size "
+                    f"to re-enable)")
 
         slab = np.zeros((n, n, self.num_outputs), self.dtype)
         row_blocks = [range(r, min(r + batch_size, n))
@@ -182,6 +244,8 @@ class PairwiseScorer:
         if token_cache is None:
             budget = float(os.environ.get("VIT_ED_EVAL_TOKEN_CACHE_GB", "4"))
             token_cache = self._token_cache_bytes(n) <= budget * (1 << 30)
+        # the token cache serves the row-sharded schedule only
+        token_cache = bool(token_cache) and row_shared
 
         pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
         # every load runs on this one thread, so the PipelinePool under it
@@ -227,8 +291,9 @@ class PairwiseScorer:
             for bi, rows in enumerate(pending):
                 i0 = rows.start
                 imgs = submit(rows.start, rows.stop).result()
-                ctx = self.model.context_kv_cache(
-                    self.model.encode(self._to_device(imgs)))
+                feats = self.model.encode(self._to_device(imgs))
+                ctx = (self.model.context_kv_cache(feats)
+                       if row_shared or self.use_kv_cache else feats)
                 if tok_cache is not None:
                     rows_cols = [(i - i0, np.arange(i, n)) for i in rows]
                     for (li, cols), scores in zip(
@@ -246,6 +311,17 @@ class PairwiseScorer:
                             fut = submit(j1, min(j1 + batch_size, n))
                         tokens = self.model.prepare_x2_scan(
                             self._to_device(col_imgs))
+                        if not row_shared:
+                            # pairs (i, j), i in rows, j in [j0, j1), i <= j
+                            gi, gj = np.meshgrid(np.arange(rows.start, rows.stop),
+                                                 np.arange(j0, j1), indexing="ij")
+                            mask = gi <= gj
+                            pri, prj = gi[mask], gj[mask]
+                            if len(pri):
+                                slab[pri, prj] = self.score_pairs_block(
+                                    ctx, tokens, pri - i0, prj - j0
+                                ).astype(self.dtype)
+                            continue
                         rows_cols = [(i - i0, np.arange(max(i, j0), j1))
                                      for i in rows if max(i, j0) < j1]
                         outs = self.score_rows_block(
@@ -275,4 +351,56 @@ class PairwiseScorer:
         out = slab if self.num_outputs > 1 else slab[..., 0]
         il = np.tril_indices(n, -1)
         out[il] = np.swapaxes(out, 0, 1)[il]
+        return out
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def score_dense(self, images: np.ndarray, batch_size: int = 128,
+                    include_diagonal: bool = False) -> np.ndarray:
+        """All ordered pairs (i, j), i != j, of a modest image set (the
+        pieces of one puzzle): [N, N, num_outputs] float32 logits, the
+        diagonal zero unless ``include_diagonal``. Image i is the pair's
+        encoder (x1) stream and image j its decoder (x2) stream. The encoder,
+        its K/V and the x2 preparation run once per image, the decoder once
+        per pair. The whole set's K/V block stays on the device; where it
+        would pass the 4 GiB budget, the mixed-chunk schedule scores the
+        pairs instead."""
+        n = len(images)
+        m = self.model
+        row_shared = self.row_shared and self._kv_block_bytes(n) <= _KV_BLOCK_BUDGET
+        use_kv = row_shared or self.use_kv_cache
+        t0 = time.time()
+        context = tokens = None
+        for lo in range(0, n, batch_size):
+            hi = min(lo + batch_size, n)
+            imgs = self._to_device(images[lo:hi])
+            feats = m.encode(imgs)
+            part = m.context_kv_cache(feats) if use_kv else feats
+            tok = m.prepare_x2_scan(imgs)
+            if context is None:
+                axis = 1 if use_kv else 0
+                shape = list(part.shape)
+                shape[axis] = n
+                context = part.new_empty(shape)
+                tokens = tok.new_empty((n,) + tuple(tok.shape[1:]))
+            context.narrow(axis, lo, hi - lo).copy_(part)
+            tokens[lo:hi] = tok
+        self._sync()
+        t1 = time.time()
+
+        out = np.zeros((n, n, self.num_outputs), np.float32)
+        if row_shared:
+            rows_cols = [(i, np.arange(n) if include_diagonal else
+                          np.concatenate([np.arange(i), np.arange(i + 1, n)]))
+                         for i in range(n)]
+            for (i, cols), scores in zip(
+                    rows_cols, self.score_rows_block(context, tokens, rows_cols)):
+                out[i, cols] = scores
+        else:
+            gi, gj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+            mask = np.ones_like(gi, bool) if include_diagonal else gi != gj
+            pi, pj = gi[mask], gj[mask]
+            out[pi, pj] = self.score_pairs_block(context, tokens, pi, pj)
+        self._sync()
+        self.dense_seconds = {"prepare": t1 - t0, "score": time.time() - t1}
         return out
