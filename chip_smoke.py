@@ -91,7 +91,28 @@ nothing from the JAX package. Phases, each printing its own lines:
     Python one (equal placements and best buddies), the scan's mixed-chunk
     fallback at patch16_512 (N = 16) against its row-sharded slab (1e-2;
     the pair kv kernel), one score_dense under the profiler, and the 4-D
-    forward at the evaluation's shapes against plain (2e-2), timed.
+    forward at the evaluation's shapes against plain (2e-2), timed;
+16. Michigan / Geshaem writer retrieval at pjs-S patch16_384
+    (configs/michigan/michigan_patch16_384.yaml: 576 patches + CLS, so
+    S = 577 on every pair kernel): synthetic trees from a seed (8 and 80
+    papyri x 4 JPEGs of ~700 x 900 px; 30 Geshaem JPEGs in 5 groups); every
+    pair kernel of the path against plain at S = 577 / Sk = 576 (B = 33, the
+    training pair buffer, and 64; the encoder's S = 576 at B = 16), forward
+    as in phase 2 and dq / dkv as in phase 6, then timed with plain, SDPA
+    and the bound; ``python -m vit_ed_tpu_torch.michigan --mode train``
+    (batch 16, one epoch: the median step with the loader, trained pairs/s,
+    the MFU line as logged, the device-only step, host ms per item of the
+    Michigan chain native and plain); SIGTERM to a ``--mode train``
+    subprocess after its first ``Train:`` line (exit 0, a mid-epoch
+    checkpoint) and a rerun that continues the epoch to the uninterrupted
+    update count; ``--mode eval`` (the val scan, N = 48: pairs/s, the slab
+    against direct forwards, 1e-2, one chunk under the profiler) and
+    ``--mode throughput``; ``--mode
+    test`` (geshaem_test) and ``python -m
+    vit_ed_tpu_torch.geshame_evaluation`` (pairs/s, the metrics, every batch
+    of stacked pairs through the loader's whole-batch pool, the loader
+    alone); every run with
+    launch counts of its own, reset before and read after.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -499,7 +520,7 @@ def chunk_breakdown(model, kv_row, adv):
             torch.cuda.synchronize()
     rows = device_rows(prof, 3)
     busy = sum(r[1] for r in rows)
-    print(f"  one 64-pair chunk: {ms:.2f} ms wall (CUDA events); profiler "
+    print(f"  one {adv.shape[0]}-pair chunk: {ms:.2f} ms wall (CUDA events); profiler "
           f"device time {busy:.2f} ms/chunk" + ("" if rows else " (not measured:"
                                                " the profiler saw no device time)"))
     for key, t, cnt in rows[:12]:
@@ -694,51 +715,62 @@ def rate(kind, b, h, sq, sk, d, ms, bound_ms):
             f"executed, {100 * bound_ms / ms:.1f}% of bound")
 
 
+def backward_rows(name, t, b, s, sk, note):
+    """Times of one wrapper's VJP on the inputs ``t`` (bf16): dq + dkv
+    through autograd beside the plain backward and SDPA's backward, then
+    each of the two kernels alone on the views the wrapper hands them, with
+    their bounds; prints one line (ending in ``note``) and returns the rows
+    ``<name>_bwd``, ``<name>_dq`` and ``<name>_dkv``."""
+    _fn, names = VJP_WRAPPERS[name]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kv_len = s if name in ("qkv", "qkv_cls") else sk
+    args, out, do = vjp_graph(name, t)
+    qkv, cols, c, rows = A._operands(name, [t[n] for n in names])
+    q, k, v = (heads(x).requires_grad_() for x in A._slices(qkv, cols, c, rows))
+    lib_out = sdpa(q, k, v)
+    lib_do = heads(do)
+    r = {"ms": timed(lambda: torch.autograd.grad(out, args, do, retain_graph=True)),
+         "plain_ms": timed(lambda: plain_grads(name, t, do), n=5, inner=1),
+         "library_ms": timed(lambda: torch.autograd.grad(
+             lib_out, (q, k, v), lib_do, retain_graph=True))}
+    r["bound_ms"], r["bound_by"] = bwd_bound(name, b, s, kv_len)
+    res = {name + "_bwd": r}
+    sq = 1 if name == "qkv_cls" else s
+    line = (f"  {name + '_bwd':12s} dq + dkv {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
+            f"ms  sdpa backward {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {rate('both', b, H, sq, kv_len, D, r['ms'], r['bound_ms'])})")
+    # each of the two kernels alone, on the views the wrapper hands them
+    tensors = [t[n] for n in names]
+    qv, kv_, vv = A._heads_views(name, tensors, H)
+    dq, dk, dv = A._heads_views(name, [torch.empty_like(x) for x in tensors], H)
+    doh = A._to_heads(name, do, H)
+    stats = A._launch_heads_dq(name, qv, kv_, vv, doh, dq, D ** -0.5, "")
+    for kind, fn in (
+            ("dq", lambda: A._launch_heads_dq(name, qv, kv_, vv, doh, dq, D ** -0.5, "")),
+            ("dkv", lambda: A._launch_heads_dkv(name, qv, kv_, vv, doh, dk, dv, stats,
+                                                D ** -0.5, ""))):
+        rk = {"ms": timed(fn), "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+              "library": "sdpa backward: dq, dk and dv together",
+              "plain": "pair_attention_backward_plain: dq, dk and dv together",
+              "shape": f"B={b} H={H} Sq={qv.shape[2]} Sk={kv_len} d={D} bf16"}
+        rk["bound_ms"], rk["bound_by"] = heads_bound(kind, b, qv.shape[2], kv_len, h=H, d=D)
+        res[f"{name}_{kind}"] = rk
+        line += (f"; {kind} {rk['ms']:.4f} ms (bound {rk['bound_ms']:.4f} {rk['bound_by']}; "
+                 f"{rate(kind, b, H, sq, kv_len, D, rk['ms'], rk['bound_ms'])})")
+    print(line + f"; {note}", flush=True)
+    return res
+
+
 def phase_backward_times(gen):
     print(f"== phase 7: backward kernel times at the training shapes "
           f"(B={TRAIN_PAIRS} pairs, bf16)", flush=True)
     b, s, sk = TRAIN_PAIRS, 1025, 1024
     t = vjp_inputs(gen, torch.bfloat16, b, s, sk)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {}
-    for name, (_fn, names) in VJP_WRAPPERS.items():
-        kv_len = s if name in ("qkv", "qkv_cls") else sk
-        args, out, do = vjp_graph(name, t)
-        qkv, cols, c, rows = A._operands(name, [t[n] for n in names])
-        q, k, v = (heads(x).requires_grad_() for x in A._slices(qkv, cols, c, rows))
-        lib_out = sdpa(q, k, v)
-        lib_do = heads(do)
-        r = {"ms": timed(lambda: torch.autograd.grad(out, args, do, retain_graph=True)),
-             "plain_ms": timed(lambda: plain_grads(name, t, do), n=5, inner=1),
-             "library_ms": timed(lambda: torch.autograd.grad(
-                 lib_out, (q, k, v), lib_do, retain_graph=True))}
-        r["bound_ms"], r["bound_by"] = bwd_bound(name, b, s, kv_len)
-        res[name + "_bwd"] = r
-        sq = 1 if name == "qkv_cls" else s
-        line = (f"  {name + '_bwd':12s} dq + dkv {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
-                f"ms  sdpa backward {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}; {rate('both', b, H, sq, kv_len, D, r['ms'], r['bound_ms'])})")
-        # each of the two kernels alone, on the views the wrapper hands them
-        tensors = [t[n] for n in names]
-        qv, kv_, vv = A._heads_views(name, tensors, H)
-        dq, dk, dv = A._heads_views(name, [torch.empty_like(x) for x in tensors], H)
-        doh = A._to_heads(name, do, H)
-        stats = A._launch_heads_dq(name, qv, kv_, vv, doh, dq, D ** -0.5, "")
-        for kind, fn in (
-                ("dq", lambda: A._launch_heads_dq(name, qv, kv_, vv, doh, dq, D ** -0.5, "")),
-                ("dkv", lambda: A._launch_heads_dkv(name, qv, kv_, vv, doh, dk, dv, stats,
-                                                    D ** -0.5, ""))):
-            rk = {"ms": timed(fn), "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                  "library": "sdpa backward: dq, dk and dv together",
-                  "plain": "pair_attention_backward_plain: dq, dk and dv together",
-                  "shape": f"B={b} H={H} Sq={qv.shape[2]} Sk={kv_len} d={D} bf16"}
-            rk["bound_ms"], rk["bound_by"] = heads_bound(kind, b, qv.shape[2], kv_len, h=H, d=D)
-            res[f"{name}_{kind}"] = rk
-            line += (f"; {kind} {rk['ms']:.4f} ms (bound {rk['bound_ms']:.4f} {rk['bound_by']}; "
-                     f"{rate(kind, b, H, sq, kv_len, D, rk['ms'], rk['bound_ms'])})")
-        print(line + f"; {STEP_LAUNCHES.get(name + '_dq', 0)} backwards per train step",
-              flush=True)
-        del out, lib_out, q, k, v
+    for name in VJP_WRAPPERS:
+        res.update(backward_rows(
+            name, t, b, s, sk,
+            f"{STEP_LAUNCHES.get(name + '_dq', 0)} backwards per train step"))
     # the encoder's backward runs at the image batch, not the pair batch
     te = vjp_inputs(gen, torch.bfloat16, TRAIN_BATCH, 1024, 1024)
     args, out, do = vjp_graph("qkv", te)
@@ -1950,6 +1982,537 @@ def phase_puzzle_eval(tmp, ckpt_path, gen):
     return shapes, times, len(records)
 
 
+# ---------------------------------------------------------------------------
+# the Michigan / Geshaem slice: pjs-S at patch16_384, so S = 577 on every
+# pair kernel
+# ---------------------------------------------------------------------------
+
+MICHIGAN_CFG = os.path.join(ROOT, "configs", "michigan", "michigan_patch16_384.yaml")
+M_S, M_SK = 577, 576            # decoder tokens (576 patches + CLS); encoder tokens
+M_BATCH = 16
+M_PAIRS = 2 * M_BATCH + 1       # Michigan's pair buffer: (1 + 1 negative ratio) * B + 1
+M_FWD = ("qkv", "kv", "kv_shared", "qkv_cls")
+M_BWD = ("qkv", "qkv_cls", "kv")
+# the kernels of the Michigan paths by (counter, Sq, Sk): training launches
+# the encoder's qkv at S = 576 and the decoder's qkv, qkv_cls and kv (each
+# with dq and dkv); the val scan launches kv_shared; the Geshaem stacked-pair
+# forwards launch qkv, qkv_cls and kv
+M_TRAIN_SHAPES = {(f"{name}{kind}", n_q, n_k)
+                  for name, n_q, n_k in (("qkv", M_SK, M_SK), ("qkv", M_S, M_S),
+                                         ("qkv_cls", 1, M_S), ("kv", M_S, M_SK))
+                  for kind in ("", "_dq", "_dkv")}
+M_SCAN_SHAPES = {("kv_shared", M_S, M_SK), ("kv_shared", 1, M_SK), ("qkv", M_S, M_S),
+                 ("qkv", M_SK, M_SK), ("qkv_cls", 1, M_S)}
+M_PAIR_SHAPES = {("qkv", M_SK, M_SK), ("qkv", M_S, M_S), ("qkv_cls", 1, M_S),
+                 ("kv", M_S, M_SK)}
+
+
+def by_shape(shapes, name, n_q, n_k):
+    """Launches of counter ``name`` at (Sq, Sk), every batch size."""
+    return sum(v for k, v in shapes.items() if k[0] == name and k[3:5] == (n_q, n_k))
+
+
+def write_michigan(root, papyri, per=4, seed=0):
+    """Synthetic Michigan tree: ``<root>/P<p>/front/detail/P<p>sub/papyrus/x/
+    <f>.jpg``, papyrus-correlated noise textures of ~700 x 900 px."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for p in range(papyri):
+        d = os.path.join(root, f"P{p:03d}", "front", "detail", f"P{p:03d}sub",
+                         "papyrus", "x")
+        os.makedirs(d)
+        base = rng.integers(0, 256, size=(700 + 4 * (p % 8), 900, 3))
+        for f in range(per):
+            arr = np.clip(base + rng.integers(-40, 40, base.shape), 0, 255)
+            Image.fromarray(arr.astype(np.uint8)).save(os.path.join(d, f"{f}.jpg"),
+                                                       quality=90)
+    return papyri * per
+
+
+def write_geshaem(root, groups=5, per=2, seed=0):
+    """Synthetic Geshaem tree: ``<root>/<name>_r_c1/papyrus/x/<i>.jpg`` for
+    ``groups`` groups, each of two fragments and their assembled name (A,
+    B, A_B), ``per`` images each (so that every image has another of its
+    fragment: wi19's Pr@k is NaN for a query without one, as upstream):
+    3 * per * groups recto JPEGs of ~500 x 600 px."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    n = 0
+    for g in range(groups):
+        a, b = f"G{2 * g:02d}", f"G{2 * g + 1:02d}"
+        base = rng.integers(0, 256, size=(500 + 8 * g, 600, 3))
+        for name in (a, b, f"{a}_{b}"):
+            d = os.path.join(root, f"{name}_r_c1", "papyrus", "x")
+            os.makedirs(d)
+            for i in range(per):
+                arr = np.clip(base + rng.integers(-60, 60, base.shape), 0, 255)
+                Image.fromarray(arr.astype(np.uint8)).save(os.path.join(d, f"{i}.jpg"),
+                                                           quality=90)
+                n += 1
+    return n
+
+
+def phase_michigan_kernels(gen):
+    """Phase 16a: every pair kernel of the Michigan paths against plain at
+    C = 384, H = 6, S = 577 (Sk = 576 for the cross layouts), B = the
+    training pair buffer and 64, and the encoder's S = 576 at B = 16."""
+    print(f"== phase 16a: pair kernels against plain at pjs-S patch16_384's length "
+          f"(C=384, H=6, S={M_S}, Sk={M_SK}; B={M_PAIRS} and 64; the last key of every "
+          f"(batch, head) dominant) on {card_line()}", flush=True)
+    err = {name: 0.0 for name in M_FWD + tuple(f"{n}_bwd" for n in M_BWD)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, sk, names in ((M_PAIRS, M_S, M_SK, M_FWD + ("kv_shared_cls",)),
+                                (64, M_S, M_SK, M_FWD + ("kv_shared_cls",)),
+                                (M_BATCH, M_SK, M_SK, ("qkv",))):
+            cs = cases(gen, dtype, b, s, sk, probe=True)
+            outs = {}
+            for name in names:
+                kern, plain, _lib, _inp = cs[name]
+                ref = plain()
+                out = kern(poison(ref))
+                torch.cuda.synchronize()
+                e, rel = forward_reading(out, ref)
+                ok = rel <= TOL[dtype]
+                print(f"  {name:14s} {str(dtype)[6:]:8s} B={b} S={s} max|kernel-plain|="
+                      f"{e:.3e}, /max|plain|={rel:.3e} tol={TOL[dtype]:g} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name} {dtype} B={b} S={s}: kernel != plain")
+                key = "kv_shared" if name == "kv_shared_cls" else name
+                err[key] = max(err[key], e)
+                outs[name] = out
+            if "kv_shared" in outs:
+                inp = cs["kv_shared"][3]
+                bcast = A.fused_attention_packed_kv(
+                    inp["q"], inp["kv1"].expand(b, -1, -1).contiguous(), H)
+                torch.cuda.synchronize()
+                if not (torch.equal(outs["kv_shared"], bcast)
+                        and torch.equal(outs["qkv_cls"], outs["qkv"][:, :1])):
+                    raise AssertionError("kv_shared != broadcast kv or cls != row 0")
+                print(f"  {str(dtype)[6:]} B={b}: kv_shared == broadcast kv and cls == "
+                      f"full row 0, bit for bit", flush=True)
+            del cs, outs
+        for b, s, sk, names in ((M_PAIRS, M_S, M_SK, M_BWD), (M_BATCH, M_SK, M_SK, ("qkv",))):
+            t = vjp_inputs(gen, dtype, b, s, sk)
+            for name in names:
+                args, out, do = vjp_graph(name, t)
+                got = torch.autograd.grad(out, args, do, retain_graph=True)
+                again = torch.autograd.grad(out, args, do)
+                ref = plain_grads(name, t, do)
+                torch.cuda.synchronize()
+                worst = 0.0
+                for g, g2, r in zip(got, again, ref):
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"{name}_bwd: two launches differ")
+                    e = (g.float() - r.float()).abs().max().item()
+                    worst = max(worst, e / r.float().abs().max().item())
+                    err[name + "_bwd"] = max(err[name + "_bwd"], e)
+                ok = worst <= TOL[dtype] and all(torch.isfinite(g).all() for g in got)
+                print(f"  {name + '_bwd':14s} {str(dtype)[6:]:8s} B={b} S={s} "
+                      f"max|kernel-plain|/max|grad|={worst:.3e} tol={TOL[dtype]:g} "
+                      f"bit-equal twice {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name}_bwd {dtype} B={b} S={s}: kernel != plain")
+            del t
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_michigan_times(gen):
+    """Phase 16b: the pair kernels' times at S = 577 (bf16) beside plain,
+    SDPA and the card's bound."""
+    print(f"== phase 16b: pair kernel times at S={M_S} (bf16; forwards at B={M_PAIRS}, "
+          f"the training pair buffer, and 64; the encoder's S={M_SK} at B={M_BATCH}; "
+          f"backwards at B={M_PAIRS}) on {card_line()}", flush=True)
+    res = {}
+    for b, s, names, tag in ((M_PAIRS, M_S, ("qkv", "kv", "qkv_cls", "kv_shared"), "train"),
+                             (64, M_S, ("qkv", "kv", "qkv_cls", "kv_shared"), "b64"),
+                             (M_BATCH, M_SK, ("qkv",), "encoder")):
+        cs = cases(gen, torch.bfloat16, b, s, M_SK)
+        for name in names:
+            kern, plain, lib, _ = cs[name]
+            kv_len = s if name in ("qkv", "qkv_cls") else M_SK
+            r = {"ms": timed(kern), "plain_ms": timed(plain, inner=1),
+                 "library_ms": timed(lib)}
+            r["bound_ms"], r["bound_by"] = bound(name, b, s, kv_len)
+            res[f"{name}@{tag}"] = r
+            print(f"  {name:10s} B={b:<3d} S={s} kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)", flush=True)
+        del cs
+    t = vjp_inputs(gen, torch.bfloat16, M_PAIRS, M_S, M_SK)
+    for name in M_BWD:
+        rows = backward_rows(name, t, M_PAIRS, M_S, M_SK, f"B={M_PAIRS} S={M_S}")
+        res.update({f"{k}@train": v for k, v in rows.items()})
+    te = vjp_inputs(gen, torch.bfloat16, M_BATCH, M_SK, M_SK)
+    rows = backward_rows("qkv", te, M_BATCH, M_SK, M_SK, f"the encoder, B={M_BATCH} "
+                         f"S={M_SK}")
+    res.update({f"{k}@encoder": v for k, v in rows.items()})
+    del t, te
+    torch.cuda.empty_cache()
+    return res
+
+
+def michigan_argv(data, out, tag, mode, *extra):
+    return ["--cfg", MICHIGAN_CFG, "--data-path", data, "--mode", mode,
+            "--output", out, "--tag", tag, *extra]
+
+
+def geshaem_argv(data, out, tag):
+    return ["--cfg", MICHIGAN_CFG, "--data-path", data, "--output", out, "--tag", tag]
+
+
+def michigan_stages():
+    from vit_ed_tpu_torch import michigan
+    from vit_ed_tpu_torch.data import transforms as T
+
+    return [("decode", T, "open_rgb"), ("random_crop", T, "random_crop"),
+            ("coarse_dropout", michigan, "_coarse_dropout"),
+            ("color_jitter", T, "color_jitter"), ("blur", T.GaussianBlur, "__call__"),
+            ("normalize", T, "normalize_image")]
+
+
+def phase_michigan_train(tmp, data):
+    """Phase 16c: ``python -m vit_ed_tpu_torch.michigan --mode train`` at full
+    width, one epoch at batch 16, launch counts reset before and read
+    after."""
+    from vit_ed_tpu_torch import michigan
+
+    card = card_line()
+    print(f"== phase 16c: python -m vit_ed_tpu_torch.michigan --mode train (pjs-S "
+          f"patch16_384, bf16, drop path 0.1, batch {M_BATCH} -> <= {M_PAIRS} pairs)",
+          flush=True)
+    steps = []
+    inner = michigan.MichiganTrainer.train_step
+
+    def recorded(self, micro_batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item(),
+                      "pairs": int(sum(b["pair_mask"].sum() for b in micro_batches))})
+        return loss, norm
+
+    argv = michigan_argv(data, os.path.join(tmp, "out"), "train", "train",
+                         "--batch-size", str(M_BATCH), "--opts", "TRAIN.EPOCHS", "1",
+                         "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "4")
+    A.reset_launch_counts()
+    michigan.MichiganTrainer.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = michigan.main(argv)
+    finally:
+        michigan.MichiganTrainer.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    shapes = dict(A.launches_by_shape)
+    ms = [s["ms"] for s in steps[1:]]
+    pairs = sum(s["pairs"] for s in steps[1:])
+    mfu = [line.split("INFO ", 1)[-1].strip() for line in open(os.path.join(
+        trainer.config.OUTPUT, "log_rank0train.txt")) if "Model FLOPs" in line]
+    print(f"  {card}: {len(steps)} optimizer steps; step {np.median(ms):.1f} ms median "
+          f"({min(ms):.1f}-{max(ms):.1f}, first {steps[0]['ms']:.1f}) with the loader; "
+          f"{pairs / (sum(ms) / 1e3):.1f} trained pairs/s ({pairs / len(ms):.1f} live "
+          f"pairs per step); {wall:.1f}s with model build and two validates")
+    print(f"  loss {[round(s['loss'], 3) for s in steps[:12]]} ...")
+    print(f"  {card}: MFU line as logged: {mfu}", flush=True)
+    print(f"  launches by shape (counter, B, Sq, Sk, launches) "
+          f"{sorted((k[0], k[1], k[3], k[4], v) for k, v in shapes.items())}", flush=True)
+    n_steps = len(trainer.get_dataloader("train"))
+    if len(steps) != n_steps or trainer.step != n_steps or len(steps) < 8:
+        raise AssertionError(f"ran {len(steps)} of {n_steps} optimizer steps")
+    if not all(np.isfinite(s["loss"]) and s["loss"] > 0 for s in steps):
+        raise AssertionError("loss not finite and positive")
+    if not mfu or "989.4 TF/s" not in mfu[0]:
+        raise AssertionError(f"no MFU line against the card's peak: {mfu}")
+    for key in M_TRAIN_SHAPES:
+        if by_shape(shapes, *key) <= 0:
+            raise AssertionError(f"--mode train never launched {key}")
+    step_breakdown(trainer)
+    host_input_cost(trainer, michigan_stages(), "JPEG decode + Michigan train augmentation")
+    del trainer
+    torch.cuda.empty_cache()
+    return shapes, n_steps
+
+
+def phase_michigan_preempt(tmp, data, n_steps):
+    """Phase 16d: the SIGTERM guard on the card. ``--mode train`` in a
+    subprocess gets SIGTERM after its first ``Train:`` line; it must exit 0
+    with a mid-epoch checkpoint, and a rerun must continue that epoch and
+    end with the uninterrupted run's update count."""
+    import signal
+    import threading
+
+    from vit_ed_tpu_torch import michigan
+    from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
+
+    print("== phase 16d: preemption: SIGTERM to python -m vit_ed_tpu_torch.michigan "
+          "--mode train after its first Train: line, then a rerun (full width)",
+          flush=True)
+    argv = michigan_argv(data, os.path.join(tmp, "out"), "preempt", "train",
+                         "--batch-size", str(M_BATCH), "--opts", "TRAIN.EPOCHS", "1",
+                         "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "4")
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-m", "vit_ed_tpu_torch.michigan", *argv],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    lines, sent = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if sent is None and "Train:" in line:
+                proc.send_signal(signal.SIGTERM)
+                sent = time.time()
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    said = [x.split("INFO ", 1)[-1].strip() for x in lines if "Preempted" in x]
+    print(f"  subprocess exit {rc} {time.time() - t0:.1f}s after its start, "
+          f"{time.time() - sent if sent else float('nan'):.1f}s after SIGTERM; {said}",
+          flush=True)
+    out_dir = os.path.join(tmp, "out", "michigan_patch16_384", "preempt")
+    if rc != 0 or sent is None or not said:
+        print("".join(lines[-30:]))
+        raise AssertionError("the preempted run did not exit 0 after saving")
+    tree = load_checkpoint(os.path.join(out_dir, "checkpoint.ckpt"))
+    k = int(tree.get("in_epoch_opt_steps", 0))
+    print(f"  checkpoint.ckpt: epoch {tree['epoch']}, step {tree['step']}, "
+          f"in_epoch_opt_steps {k}", flush=True)
+    if not (0 < k < n_steps and tree["step"] == k and tree["epoch"] == 0):
+        raise AssertionError("the preemption checkpoint is not mid-epoch")
+    A.reset_launch_counts()
+    resumed = michigan.main(argv)
+    log = open(os.path.join(out_dir, "log_rank0train.txt")).read()
+    print(f"  rerun: start epoch {resumed.start_epoch}, skipped {resumed._resume_skip_opt_steps} "
+          f"updates, ended at {resumed.step} updates (an uninterrupted run: {n_steps}); "
+          f"'continuing from optimizer step {k}' logged: "
+          f"{f'continuing from optimizer step {k}' in log}", flush=True)
+    if not (resumed.start_epoch == 0 and resumed._resume_skip_opt_steps == k
+            and resumed.step == n_steps and not resumed.preempted
+            and f"continuing from optimizer step {k}" in log):
+        raise AssertionError("the rerun did not continue the interrupted epoch")
+    del resumed
+    torch.cuda.empty_cache()
+
+
+def phase_michigan_eval(tmp, data):
+    """Phase 16e: ``--mode eval`` (the val scan) and ``--mode throughput`` on
+    the 80-papyrus tree, each with launch counts of its own; the scan's
+    slab against direct pair forwards."""
+    from vit_ed_tpu_torch import michigan
+    from vit_ed_tpu_torch.data.michigan import MichiganTest
+    from vit_ed_tpu_torch.data.transforms import OneImgEvalZoom
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+
+    card = card_line()
+    print("== phase 16e: python -m vit_ed_tpu_torch.michigan --mode eval (the val "
+          "scan) and --mode throughput", flush=True)
+    seen = []
+    inner = PairwiseScorer.score_dataset
+
+    def recorded(self, *a, **k):
+        sim = inner(self, *a, **k)
+        seen.append((self, sim))
+        return sim
+
+    out = os.path.join(tmp, "out")
+    A.reset_launch_counts()
+    PairwiseScorer.score_dataset = recorded
+    try:
+        loss = michigan.main(michigan_argv(data, out, "eval", "eval"))
+    finally:
+        PairwiseScorer.score_dataset = inner
+    torch.cuda.synchronize()
+    shapes = dict(A.launches_by_shape)
+    scorer, sim = seen[-1]
+    n = sim.shape[0]
+    print(f"  {card}: {n} val images, {scorer.pairs_done} pairs in "
+          f"{scorer.scan_seconds:.3f}s: {scorer.pairs_done / scorer.scan_seconds:.1f} "
+          f"pairs/s (encode, K/V, token cache and chunks); 1 - mAP {loss:.4f}; "
+          f"launches {sorted((k[0], k[1], k[3], k[4], v) for k, v in shapes.items())}",
+          flush=True)
+    if scorer.pairs_done != n * (n + 1) // 2 or not np.isfinite(sim.astype(np.float32)).all():
+        raise AssertionError("the scan did not score every pair")
+    for key in M_SCAN_SHAPES:
+        if by_shape(shapes, *key) <= 0:
+            raise AssertionError(f"--mode eval never launched {key}")
+    ds = MichiganTest(data, MichiganTest.Split.VAL, transforms=OneImgEvalZoom(384),
+                      val_n_items_per_writer=5)
+    pairs = [(0, 0), (0, 7), (5, 30), (12, n - 1), (n - 2, n - 1)]
+    x = torch.from_numpy(np.stack([np.stack([ds[i][0], ds[j][0]]) for i, j in pairs]))
+    with torch.inference_mode():
+        direct = scorer.model(x.to(scorer.device)).float().cpu().numpy()[:, 0]
+    gap = float(np.abs(direct - np.asarray([float(sim[i, j]) for i, j in pairs])).max())
+    print(f"  scan vs direct pair forward at {pairs}: max gap {gap:.3e} (tol 1e-2)",
+          flush=True)
+    if gap > 1e-2:
+        raise AssertionError("scan scores differ from direct forwards")
+    # one chunk of the scan's inner op: the scorer's chunk is all N columns
+    model = scorer.model
+    with torch.inference_mode():
+        kv_row = model.context_kv_cache(model.encode(x[:1, 0].to(scorer.device)))
+        adv = model.prepare_x2_scan(x[:, 1].to(scorer.device)).index_select(
+            0, torch.arange(n, device=scorer.device) % len(pairs))
+    print(f"  the scan's {n}-pair score_tokens_row chunk at S={M_S}:", flush=True)
+    chunk_breakdown(model, kv_row, adv)
+    del seen, scorer, model, kv_row, adv
+    A.reset_launch_counts()
+    img_s = michigan.main(michigan_argv(data, out, "throughput", "throughput"))
+    torch.cuda.synchronize()
+    tput = dict(A.launches_by_shape)
+    print(f"  {card}: --mode throughput {img_s:.1f} pairs/s (a batch of 128 stacked val "
+          f"pairs, 30 forwards between CUDA events); launches "
+          f"{sorted((k[0], k[1], k[3], k[4], v) for k, v in tput.items())}", flush=True)
+    for key in M_PAIR_SHAPES:
+        if by_shape(tput, *key) <= 0:
+            raise AssertionError(f"--mode throughput never launched {key}")
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_geshaem(tmp, data, gesh):
+    """Phase 16f: ``--mode test`` (geshaem_test) and ``python -m
+    vit_ed_tpu_torch.geshame_evaluation`` on the Geshaem tree, each with
+    launch counts of its own; the stacked-pair loader's whole-batch route."""
+    from vit_ed_tpu_torch import geshame_evaluation, michigan
+    from vit_ed_tpu_torch.native.pipeline import PipelinePool
+
+    card = card_line()
+    print("== phase 16f: python -m vit_ed_tpu_torch.michigan --mode test "
+          "(geshaem_test) and python -m vit_ed_tpu_torch.geshame_evaluation", flush=True)
+    out = os.path.join(tmp, "out")
+    pooled, timing = [], {}
+    prep, scores, standard = (PipelinePool.prep_batch, michigan.MichiganTrainer.geshaem_scores,
+                              geshame_evaluation.eval_standard)
+
+    def counted_prep(self, images, *a, **k):
+        pooled.append(len(images))
+        return prep(self, images, *a, **k)
+
+    def timed_scores(self, dataset):
+        t0 = time.time()
+        res = scores(self, dataset)
+        timing["test"] = (time.time() - t0, len(dataset))
+        return res
+
+    def timed_standard(config, *a, **k):
+        t0 = time.time()
+        res = standard(config, *a, **k)
+        n = res[0].shape[0]
+        timing["standard"] = (time.time() - t0, n * (n + 1) // 2)
+        return res
+
+    PipelinePool.prep_batch = counted_prep
+    michigan.MichiganTrainer.geshaem_scores = timed_scores
+    geshame_evaluation.eval_standard = timed_standard
+    try:
+        A.reset_launch_counts()
+        loss = michigan.main(michigan_argv(data, out, "gtest", "test",
+                                           "--geshaem-data-path", gesh))
+        torch.cuda.synchronize()
+        test_shapes, test_pooled = dict(A.launches_by_shape), list(pooled)
+        A.reset_launch_counts()
+        pooled.clear()
+        metrics, dm, names, frags = geshame_evaluation.main(
+            geshaem_argv(gesh, out, "gstd"))
+        torch.cuda.synchronize()
+        std_shapes, std_pooled = dict(A.launches_by_shape), list(pooled)
+    finally:
+        PipelinePool.prep_batch = prep
+        michigan.MichiganTrainer.geshaem_scores = scores
+        geshame_evaluation.eval_standard = standard
+    log = [line.split("INFO ", 1)[-1].strip() for line in open(os.path.join(
+        out, "michigan_patch16_384", "gtest", "log_rank0test.txt")) if "Geshaem test" in line]
+    # the stacked-pair loader alone (decode + the pooled eval transform), as
+    # geshaem_test builds it: what the forwards wait on
+    from vit_ed_tpu_torch.data.geshaem import GeshaemPatch
+    from vit_ed_tpu_torch.data.loader import DataLoader
+    from vit_ed_tpu_torch.data.transforms import OneImgEvalZoom
+
+    ds = GeshaemPatch(gesh, GeshaemPatch.Split.VAL, transform=OneImgEvalZoom(384))
+    t0 = time.time()
+    n_loaded = sum(len(b[0]) for b in DataLoader(ds, batch_size=128, num_workers=8))
+    t_loader = time.time() - t0
+    (t_test, n_test), (t_std, n_std) = timing["test"], timing["standard"]
+    print(f"  {card}: --mode test: {n_test} stacked pairs in {t_test:.2f}s = "
+          f"{n_test / t_test:.1f} pairs/s (loader + forwards); {log}; 1 - mAP {loss:.4f}; "
+          f"whole-batch pool calls {len(test_pooled)} of {sum(test_pooled)} images; the "
+          f"loader alone (8 threads, host clock) {n_loaded} pairs in {t_loader:.2f}s = "
+          f"{n_loaded / t_loader:.1f} pairs/s", flush=True)
+    print(f"  {card}: geshame_evaluation: {n_std} stacked pairs in {t_std:.2f}s = "
+          f"{n_std / t_std:.1f} pairs/s; mAP {metrics[0]:.3f} Top 1 {metrics[1]:.3f} "
+          f"Pr@k10 {metrics[2]:.3f} Pr@k100 {metrics[3]:.3f}; {dm.shape[0]} images; "
+          f"whole-batch pool calls {len(std_pooled)} of {sum(std_pooled)} images", flush=True)
+    for what, shapes in (("--mode test", test_shapes), ("geshame_evaluation", std_shapes)):
+        print(f"  launches of {what}: "
+              f"{sorted((k[0], k[1], k[3], k[4], v) for k, v in shapes.items())}", flush=True)
+        for key in M_PAIR_SHAPES:
+            if by_shape(shapes, *key) <= 0:
+                raise AssertionError(f"{what} never launched {key}")
+    if not (len(log) == 2 and 0.0 <= loss <= 1.0 and np.isfinite(dm).all()
+            and all(0.0 <= float(m) <= 1.0 for m in metrics)):
+        raise AssertionError("the Geshaem evaluations gave no finite metrics")
+    # every batch of stacked pairs went through the pool whole: two images per pair
+    if sum(test_pooled) != 2 * n_test or sum(std_pooled) != 2 * n_std:
+        raise AssertionError("a Geshaem batch missed the whole-batch route")
+    return test_shapes, std_shapes
+
+
+def phase_michigan(tmp, gen):
+    """Phase 16: the Michigan / Geshaem slice at pjs-S patch16_384."""
+    t0 = time.time()
+    train_data = os.path.join(tmp, "michigan_train")
+    eval_data = os.path.join(tmp, "michigan")
+    gesh = os.path.join(tmp, "geshaem")
+    n_train = write_michigan(train_data, 8, seed=1)
+    n_eval = write_michigan(eval_data, 80, seed=2)
+    n_gesh = write_geshaem(gesh)
+    print(f"== phase 16: Michigan / Geshaem (configs/michigan/michigan_patch16_384.yaml): "
+          f"synthetic trees of {n_train} and {n_eval} Michigan JPEGs (~700 x 900 px) and "
+          f"{n_gesh} Geshaem JPEGs (~500 x 600 px) in {time.time() - t0:.1f}s", flush=True)
+    err = phase_michigan_kernels(gen)
+    times = phase_michigan_times(gen)
+    train_shapes, n_steps = phase_michigan_train(tmp, train_data)
+    phase_michigan_preempt(tmp, train_data, n_steps)
+    scan_shapes = phase_michigan_eval(tmp, eval_data)
+    phase_geshaem(tmp, eval_data, gesh)
+    print(f"  phase 16 took {time.time() - t0:.1f}s", flush=True)
+
+    # one row per kernel and shape: ``launches`` from --mode train (the
+    # scan's kv_shared from --mode eval), times at the training pair buffer
+    # (kv_shared at B = 64, the encoder's qkv at its image batch)
+    rows = []
+    for name, n_q, n_k, tag, suffix in (
+            ("qkv", M_S, M_S, "train", "s577"), ("qkv", M_SK, M_SK, "encoder", "encoder_s576"),
+            ("qkv_cls", 1, M_S, "train", "s577"), ("kv", M_S, M_SK, "train", "s577")):
+        rows.append({
+            "name": f"pair_attention_{name}_{suffix}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": by_shape(train_shapes, name, n_q, n_k),
+            "max_abs_err": err[name], **times[f"{name}@{tag}"]})
+        for kind in ("dq", "dkv"):
+            rows.append({
+                "name": f"pair_attention_{name}_{kind}_{suffix}", "route": "cuda",
+                "source": HEADS_BWD_SOURCE, "replaces": BWD_REPLACES,
+                "launches": by_shape(train_shapes, f"{name}_{kind}", n_q, n_k),
+                "max_abs_err": err[f"{name}_bwd"], **times[f"{name}_{kind}@{tag}"]})
+    rows.append({
+        "name": "pair_attention_kv_shared_s577", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["kv_shared"],
+        "launches": (by_shape(scan_shapes, "kv_shared", M_S, M_SK)
+                     + by_shape(scan_shapes, "kv_shared", 1, M_SK)),
+        "max_abs_err": err["kv_shared"], **times["kv_shared@b64"]})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -1986,6 +2549,7 @@ def main():
         puzzle_shapes, puzzle_ckpt = phase_puzzle_path(tmp)
         scan32_shapes = phase_heads_scan(tmp)
         eval_shapes_run, eval_times, n_puzzles = phase_puzzle_eval(tmp, puzzle_ckpt, gen)
+        michigan_rows = phase_michigan(tmp, gen)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -2068,6 +2632,8 @@ def main():
             "launches": launched(eval_shapes_run, f"heads_{layout}", n_q, n_k), **r})
     print(f"  the evaluation's launches per puzzle by shape: " + "; ".join(
         f"{k['name']} {k['launches'] / n_puzzles:.0f}" for k in kernels[-len(eval_times):]))
+    # the Michigan slice's pair kernels at S = 577 (phase 16)
+    kernels += michigan_rows
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its main path")

@@ -8,6 +8,7 @@ plain version on the card (tests/test_torch_cuda.py and chip_smoke.py). Inputs c
 frameworks as numpy arrays.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

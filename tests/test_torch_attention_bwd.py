@@ -6,6 +6,7 @@ On the CPU the port's ``autograd.Function`` runs
 ``pair_attention_backward_plain`` (the CUDA backward kernels' chain in plain
 PyTorch); the kernels themselves are held against that plain version on the
 card (tests/test_torch_cuda.py and chip_smoke.py). Inputs and cotangents come
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 from numpy seeds and go to both frameworks as numpy arrays. Tolerances are
 the JAX suite's own for its packed gradients (tests/test_attention.py:
 f32 atol 5e-4 / rtol 1e-3, bf16 atol 3e-2).

@@ -5,6 +5,7 @@ the JAX package's 4-D Pallas kernels, run in interpret mode on the CPU under
 On the CPU the port runs ``heads_attention_plain`` forward and
 ``attention_backward_plain`` backward; the CUDA kernels are held against
 those on the card (tests/test_torch_cuda.py and chip_smoke.py). Inputs come
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 from numpy seeds and go to both frameworks as numpy arrays. Tolerances are
 the JAX suite's (tests/test_attention.py): f32 atol 2e-4, bf16 atol 3e-2.
 """

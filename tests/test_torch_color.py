@@ -5,6 +5,7 @@ on PNG and JPEG files of every colour layout the readers meet (RGB, RGBA,
 palette, grey, 16-bit, EXIF-rotated), and the border padding and writing.
 Every comparison is exact."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import cv2
 import numpy as np
 import pytest

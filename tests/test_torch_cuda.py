@@ -6,6 +6,7 @@ on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import math
 
 import numpy as np
@@ -239,6 +240,71 @@ def test_backward_kernel_matches_plain(card, wrapper, s, dtype):
         assert err <= BWD_TOL[dtype], err
     if wrapper == "qkv_cls":
         assert torch.count_nonzero(got[0][:, 1:, :C]) == 0
+
+
+# pjs-S at michigan_patch16_384: C = 384, 6 heads of 64, 576 patches, so the
+# decoder's self-attention runs at S = 577 = 9 * 64 + 1 (one row past a
+# whole tile) and its cross-attention reads the encoder's 576 keys
+MC, MH = 384, 6
+M_CALLS = {
+    "qkv": lambda a: A.fused_attention_packed_qkv(a["qkv"], MH),
+    "kv_shared": lambda a: A.fused_attention_packed_kv_shared(a["q"], a["kv1"], MH),
+    "qkv_cls": lambda a: A.fused_attention_packed_qkv_cls(a["qkv"], MH),
+    "kv": lambda a: A.fused_attention_packed_kv(a["q"], a["kv"], MH),
+    "packed": lambda a: A.fused_attention_packed(a["q"], a["k"], a["v"], MH),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [576, 577])
+@pytest.mark.parametrize("wrapper", sorted(M_CALLS))
+def test_kernel_matches_plain_at_the_michigan_width(card, wrapper, sq, dtype):
+    """Every pair forward at C = 384, H = 6: Sq = 577 (the decoder) and 576
+    (the encoder's self-attention), the cross layouts against 576 keys; the
+    last key dominates and the output starts as NaN, as in
+    ``test_kernel_matches_plain``."""
+    cpu = _probed_inputs(sq + 7, sq, 576, dtype, c=MC, h=MH)
+    before = A.launches[wrapper]
+    _check_forward(wrapper, MH, cpu, card, dtype)
+    assert A.launches[wrapper] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [576, 577])
+@pytest.mark.parametrize("wrapper", sorted(VJPS))
+def test_backward_kernel_matches_plain_at_the_michigan_width(card, wrapper, s, dtype):
+    """Each VJP at C = 384, H = 6, S = 577 / 576 (Michigan training: the
+    decoder's qkv, its CLS row and the cross-attention against the
+    encoder's 576 keys; the encoder's qkv at 576) against the CPU's plain
+    backward, within the tolerances of
+    ``test_backward_kernel_matches_plain``; two runs bit-equal."""
+    rng = np.random.default_rng(s)
+    shapes = {"qkv": (B, s, 3 * MC), "q": (B, s, MC), "kv": (B, 576, 2 * MC),
+              "k": (B, 576, MC), "v": (B, 576, MC)}
+    cpu = {n: torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dtype)
+           for n, sh in shapes.items()}
+    rows = 1 if wrapper == "qkv_cls" else s
+    do = torch.from_numpy(rng.normal(size=(B, rows, MC)).astype(np.float32)).to(dtype)
+
+    def grads(inputs, d):
+        args = [inputs[n].detach().clone().requires_grad_() for n in VJPS[wrapper]]
+        M_CALLS[wrapper](dict(zip(VJPS[wrapper], args))).backward(d)
+        return [a.grad for a in args]
+
+    dev = {n: t.to(card) for n, t in cpu.items()}
+    before = A.launches[wrapper + "_dq"]
+    got, again = grads(dev, do.to(card)), grads(dev, do.to(card))
+    torch.cuda.synchronize()
+    assert A.launches[wrapper + "_dq"] == before + 2
+    for g, g2, r in zip(got, again, grads(cpu, do)):
+        assert torch.equal(g, g2)
+        assert g.dtype == dtype and g.shape == r.shape
+        err = _grad_err(g, r)
+        assert err <= BWD_TOL[dtype], err
+    if wrapper == "qkv_cls":
+        assert torch.count_nonzero(got[0][:, 1:, :MC]) == 0
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ classification metrics against ``sklearn.metrics``, which the JAX entry
 imports. Everything here is host-side numpy / PIL: equality is exact.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import random
 import types
 from pathlib import Path

@@ -7,6 +7,7 @@ and the JAX result is the flushed zero (514 inputs on jax 0.9.0 / torch
 2.13 CPU).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ The JAX side runs its 4-D Pallas kernels in interpret mode under ``jax.jit``;
 float32 logits are compared at 1e-4, the trajectory at that file's bounds.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import os
 import types
 from pathlib import Path

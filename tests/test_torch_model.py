@@ -10,6 +10,7 @@ which covers the rounding points the two frameworks place differently
 (vit_ed_tpu_torch/models/layers.py lists them).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ built with g++ at the first call) on the CPU, bit for bit:
 Images are small (up to ~100 px) and made from numpy seeds.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import io
 import random
 import types

@@ -3,6 +3,7 @@ against the JAX PairwiseScorer on the same weights, plus the schedule
 contracts of tests/test_pairs.py: token cache == streaming, and a resumed
 scan equals a fresh one and skips the blocks it finished."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import glob
 import os
 

@@ -10,6 +10,7 @@ runs its plain attention (``use_pallas=False``), as tests/test_puzzle_eval.py
 does; the weights go through ``models/convert.py::jax_params_to_state_dict``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import logging
 import os
 import types

@@ -7,6 +7,7 @@ held against its own Python solver (its plain version) as
 tests/test_native_solver.py holds the JAX pair, the distance functions are
 compared exactly, and a native build that fails raises."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import copy
 
 import numpy as np

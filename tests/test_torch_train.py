@@ -3,6 +3,7 @@ CPU: losses, LR schedules, weight-decay groups, gradient clipping, DropPath,
 the M-per-class sampler, in-batch pair mining and the train transforms.
 Inputs come from numpy seeds and go to both frameworks."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import random
 import types
 

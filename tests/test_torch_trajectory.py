@@ -10,6 +10,7 @@ norms rtol 1e-5; step-0 gradients per parameter within 1e-4 of each
 gradient's max; one bf16 step's loss within 5e-2.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads per worker)
 import types
 
 import jax

@@ -325,7 +325,9 @@ def default_config() -> ConfigNode:
 
     # The JAX package's deployment knobs. The port reads CLS_SHORTCUT,
     # DEVICE_NORMALIZE, USE_PALLAS_ATTENTION (must stay True: the port
-    # always runs its kernel on the card) and INT8_SCORE; models/build.py
+    # always runs its kernel on the card), INT8_SCORE, MAX_TRAIN_PAIRS and
+    # PEAK_TFLOPS (the MFU line's peak where set; the JAX default is a
+    # TPU's, the port's 0 reads the card's own); models/build.py
     # raises for the parallelism, MoE, FAST_GELU and int8 switches, which
     # are not ported yet (ROADMAP). The rest are kept so that every YAML
     # of configs/ loads.
@@ -335,7 +337,7 @@ def default_config() -> ConfigNode:
     c.TPU.MAX_TRAIN_PAIRS = 0
     c.TPU.DONATE_STATE = True
     c.TPU.PROFILE_DIR = ""
-    c.TPU.PEAK_TFLOPS = 197.0
+    c.TPU.PEAK_TFLOPS = 0.0        # the MFU line's peak; 0: read from the card
     c.TPU.FAST_GELU = False        # tanh GELU instead of the exact one
     c.TPU.INT8_SCORE = False       # int8 GEMMs in the O(N^2) scoring scan
     c.TPU.CLS_SHORTCUT = True      # last decoder block computes only the

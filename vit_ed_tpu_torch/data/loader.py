@@ -15,6 +15,12 @@ threads only decode, and one ``PipelinePool.prep_batch`` call
 bit-exact against the per-item path. A batch the pool cannot express (an
 image that needs padding, or ragged output sizes) goes through the
 transform image by image, on the images already decoded.
+
+Items of several images (``GeshaemPatch``'s stacked pairs) serve
+``raw_images(i)`` instead: the k decoded images of item i. A batch's images
+are pooled flat in one call and re-stacked to [B, k, H, W, C]; a batch
+whose items hold different counts is made item by item (``dataset[i]``) on
+the loader's threads.
 """
 
 from __future__ import annotations
@@ -44,10 +50,12 @@ def default_collate(items):
 
 def pools_batches(dataset) -> bool:
     """Whether ``dataset``'s items can be prepared by ``pool_batch``: the
-    dataset serves ``raw_image`` / ``item_meta`` and its transform has a
-    pooled form (``pool_crop``) and emits float32 (not ``emit_u8``)."""
+    dataset serves ``raw_image`` (or ``raw_images``) and ``item_meta``, and
+    its transform has a pooled form (``pool_crop``) and emits float32 (not
+    ``emit_u8``)."""
     transform = getattr(dataset, "transform", None)
-    return (hasattr(dataset, "raw_image") and hasattr(dataset, "item_meta")
+    return ((hasattr(dataset, "raw_image") or hasattr(dataset, "raw_images"))
+            and hasattr(dataset, "item_meta")
             and hasattr(transform, "pool_crop")
             and not getattr(transform, "emit_u8", False))
 
@@ -133,19 +141,29 @@ class DataLoader:
             return
         ds = self.dataset
         native = self._native_pool()
+        multi = native is not None and hasattr(ds, "raw_images")
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             def submit(batch_idx):
-                # the threads decode (raw_image) or make whole items
-                fetch = ds.raw_image if native is not None else ds.__getitem__
+                # the threads decode (raw_image[s]) or make whole items
+                fetch = (ds.__getitem__ if native is None
+                         else ds.raw_images if multi else ds.raw_image)
                 return [pool.submit(fetch, i) for i in batch_idx]
 
             def finish(batch_idx, futures):
                 if native is None:
                     return default_collate([f.result() for f in futures])
+                raws = [f.result() for f in futures]
+                if multi:
+                    k = len(raws[0])
+                    if any(len(r) != k for r in raws):
+                        return default_collate(list(pool.map(ds.__getitem__,
+                                                             batch_idx)))
+                    raws = [a for r in raws for a in r]
                 # one pool call for the whole batch, on the consumer's turn
                 # (the pool is never entered from two threads)
-                images = pool_batch(native, ds.transform,
-                                    [f.result() for f in futures], pool.map)
+                images = pool_batch(native, ds.transform, raws, pool.map)
+                if multi:
+                    images = images.reshape((len(batch_idx), k) + images.shape[1:])
                 metas = [ds.item_meta(i) for i in batch_idx]
                 return (images,) + tuple(default_collate(metas))
 

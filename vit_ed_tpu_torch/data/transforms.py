@@ -1,9 +1,10 @@
 """Image transforms of the scoring and training paths.
 
 The port's copy of the pieces of ``vit_ed_tpu/data/transforms.py`` that
-the hisfrag and DIV2K entries use. Eval: ``open_rgb``, ``resize``,
-``center_crop``, ``to_tensor``, ``normalize``, ``as_sample_array``,
-``OneImgEval`` and ``TwoImgSyncEval``. Training: ``random_affine``,
+the hisfrag, DIV2K and Michigan / Geshaem entries use. Eval: ``open_rgb``,
+``resize``, ``center_crop``, ``to_tensor``, ``normalize``,
+``as_sample_array``, ``OneImgEval``, ``OneImgEvalZoom`` and
+``TwoImgSyncEval``. Training: ``random_affine``,
 ``shift_scale_rotate`` (both through ``warp_affine``, an affine warp with
 cv2 INTER_LINEAR semantics), ``rgb_shift``, ``random_crop``,
 ``color_jitter``, ``GaussianBlur`` and ``normalize_image``; ``crop`` splits
@@ -168,6 +169,61 @@ class OneImgEval:
             arr = np.asarray(img, np.uint8)
             return arr[:, :, None] if arr.ndim == 2 else arr
         return normalize(to_tensor(img))
+
+
+class OneImgEvalZoom:
+    """The Michigan / Geshaem eval chain: center-crop to s x s (padding a
+    short image), resize to int(s * zoom), center-crop back to s,
+    normalize; ``emit_u8`` returns the uint8 crop instead (the model
+    normalizes on the device).
+
+    Pooled protocol: ``pool_crop`` is the first crop and the resize, and
+    the last center crop, which commutes with the pointwise normalize, is
+    ``pool_post_crop``, a slice of the pool's output. On an RGB image
+    ``__call__`` takes the same native route, so pooled and per-item
+    outputs are equal bit for bit, and equal the plain chain."""
+
+    def __init__(self, image_size: int, zoom: float = 1.15,
+                 emit_u8: bool = False):
+        self.image_size = int(image_size)
+        self.zoom = zoom
+        self.resized = int(self.image_size * zoom)
+        self.emit_u8 = emit_u8
+
+    def pool_crop(self, shape_hw):
+        """(crop rect (y0, x0, h, w), resize target) of the native fused
+        prep, or None where the plain chain runs (an image shorter than s
+        needs padding; the u8 wire: the prep emits normalized f32)."""
+        if self.emit_u8:
+            return None
+        h, w = shape_hw
+        s = self.image_size
+        if h < s or w < s:
+            return None
+        top = int(round((h - s) / 2.0))
+        left = int(round((w - s) / 2.0))
+        return (top, left, s, s), (self.resized, self.resized)
+
+    def pool_post_crop(self, out_hw):
+        """The slice (y0, x0, h, w) of the pooled output: the last crop."""
+        rh, rw = out_hw
+        s = self.image_size
+        return (int(round((rh - s) / 2.0)), int(round((rw - s) / 2.0)), s, s)
+
+    def __call__(self, img):
+        if _native_ok(img):
+            pc = self.pool_crop((img.height, img.width))
+            if pc is not None:
+                y0, x0, hh, ww = self.pool_post_crop(pc[1])
+                out = npipe.prep(img, pc[1], crop=pc[0])
+                return np.ascontiguousarray(out[y0:y0 + hh, x0:x0 + ww])
+        img = center_crop(img, (self.image_size, self.image_size))
+        img = resize(img, self.resized)
+        img = center_crop(img, self.image_size)
+        if self.emit_u8:
+            arr = np.asarray(img, np.uint8)
+            return arr[:, :, None] if arr.ndim == 2 else arr
+        return normalize_image(img)
 
 
 class TwoImgSyncEval:

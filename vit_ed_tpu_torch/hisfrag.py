@@ -10,7 +10,9 @@ the JAX package).
 
 ``--mode train``: M-per-class batches (m = 3); in-batch pair mining builds
 positive and negative index pairs from the label-equality matrix with the
-negatives capped at 2x the positives, into a fixed-size padded pair buffer.
+negatives capped at 2x the positives, into a fixed-size padded pair buffer
+(subclasses set the cap, the loss reduction and whether an image's
+negatives are mined over its whole row: ``vit_ed_tpu_torch/michigan.py``).
 The encoder runs ONCE per batch; the pairs gather encoder features and
 decoder tokens, and the loss is a masked BCE on the pair logits. Each epoch
 writes ``checkpoint.ckpt`` (and ``best_model.ckpt`` when the val loss
@@ -84,6 +86,7 @@ def write_distance_csv(path: str, distance_matrix: np.ndarray,
 class HisfragTrainer(Trainer):
     NEG_PAIR_RATIO = 2.0          # negatives per positive, at most
     LOSS_REDUCTION = "mean"
+    NEG_FULL_ROW = False          # negatives of image i: j >= i, or every j
 
     def get_criterion(self):
         return bce_with_logits
@@ -146,7 +149,10 @@ class HisfragTrainer(Trainer):
             pos_j = np.flatnonzero(pos_mask[i, i:]) + i
             if len(pos_j):
                 pos_groups.append(np.stack([np.full(len(pos_j), i), pos_j], 1))
-            neg_j = np.flatnonzero(neg_mask[i, i:]) + i
+            if self.NEG_FULL_ROW:
+                neg_j = np.flatnonzero(neg_mask[i, :])
+            else:
+                neg_j = np.flatnonzero(neg_mask[i, i:]) + i
             if len(neg_j):
                 neg_groups.append(np.stack([np.full(len(neg_j), i), neg_j], 1))
         pos_groups = np.concatenate(pos_groups, 0) if pos_groups else np.zeros((0, 2), int)

@@ -3,8 +3,12 @@ on ``torch.save``.
 
 A checkpoint is one file ``OUTPUT/<name>.ckpt`` holding ``model`` and
 ``optimizer`` state dicts, ``step`` (optimizer updates applied), ``epoch``,
-``min_loss`` and ``drop_path_generator`` (the state of the model's
-stochastic-depth generator); the config is dumped beside it as YAML.
+``min_loss``, ``in_epoch_opt_steps`` (an int: the updates of ``epoch``
+already applied by a mid-epoch preemption save, 0 at an epoch's end) and
+``drop_path_generator`` (the state of the model's stochastic-depth
+generator); the config is dumped beside it as YAML. ``np.random``'s state
+is not saved: the trainer seeds it at start, and a resume draws and
+prepares the skipped batches again, which realigns its draws.
 ``auto_resume_helper`` picks the newest checkpoint of a directory by
 mtime. Files are written to a temporary name and renamed, so a killed run
 never leaves a half-written checkpoint under the final name.

@@ -17,14 +17,23 @@ PyTorch:
 - the LR schedule is evaluated on the number of updates already applied
   and written into the optimizer before each update.
 
+With ``TRAIN.PREEMPT_SAVE`` (the default) ``train()`` installs a SIGTERM
+guard (``utils/preempt.py``) before anything else; after an update on which
+it trips, the trainer saves ``checkpoint`` with ``in_epoch_opt_steps`` (the
+updates of the epoch already applied) and returns. Resuming from such a
+checkpoint continues the same epoch: its first ``in_epoch_opt_steps``
+batches are drawn and prepared as in the interrupted run (so the sampler
+and ``np.random`` stay aligned with an uninterrupted run) and skipped.
+Each epoch ends with a model-FLOP MFU line (``utils/flops.py``) once it has
+three or more intervals between the loop's syncs.
+
 ``throughput()`` times forwards of one validation batch; with
 ``TPU.PROFILE_DIR`` set it also writes a ``torch.profiler`` trace of the
 timed region.
 
 Not ported yet (ROADMAP, "what the slices left out"): a device mesh and every
-parallelism switch (they raise), BatchNorm running statistics, MoE aux
-losses, the SIGTERM guard with mid-epoch exact-step resume
-(``utils/preempt.py``) and the MFU report.
+parallelism switch (they raise), BatchNorm running statistics and MoE aux
+losses.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ from vit_ed_tpu_torch.train.optim import (
     set_lr,
 )
 from vit_ed_tpu_torch.utils import AverageMeter, create_logger, set_seed
+from vit_ed_tpu_torch.utils.flops import bf16_peak_tflops, pjs_step_flops
+from vit_ed_tpu_torch.utils.preempt import PreemptionGuard
 from vit_ed_tpu_torch.utils.profiler import maybe_trace
 
 Batch = Dict[str, torch.Tensor]
@@ -108,6 +119,9 @@ class Trainer:
         self.start_epoch = self.config.TRAIN.START_EPOCH
         self.step = 0          # optimizer updates applied
         self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.preempted = False
+        self._preempt: Optional[PreemptionGuard] = None
+        self._resume_skip_opt_steps = 0
 
         if self.config.TRAIN.AUTO_RESUME:
             resume_file = ckpt.auto_resume_helper(self.config.OUTPUT)
@@ -219,16 +233,27 @@ class Trainer:
         self.loss_fn = self.make_loss_fn(self.get_criterion())
 
     def train(self):
+        # the guard goes in first: building the loader and the optimizer and
+        # the initial validate take a while, and a SIGTERM then must latch
+        # the flag instead of killing the process
+        self.preempted = False
+        self._preempt = None
+        if self.config.TRAIN.PREEMPT_SAVE:
+            self._preempt = PreemptionGuard(
+                check_freq=self.config.TRAIN.PREEMPT_CHECK_FREQ).install()
+        try:
+            return self._train_inner()
+        finally:
+            if self._preempt is not None:
+                self._preempt.uninstall()
+
+    def _train_inner(self):
         config = self.config
-        if config.TRAIN.PREEMPT_SAVE:
-            self.logger.info(
-                "TRAIN.PREEMPT_SAVE is not ported yet: no SIGTERM guard and "
-                "no mid-epoch resume, a killed run resumes from its last "
-                "epoch checkpoint")
         data_loader = self.get_dataloader("train")
         accum = max(config.TRAIN.ACCUMULATION_STEPS, 1)
         self.setup_training(len(data_loader) // accum)
 
+        self._resume_skip_opt_steps = 0
         if config.MODEL.RESUME:
             self._load_resume()
             loss = self.validate()
@@ -241,6 +266,10 @@ class Trainer:
         self.logger.info(f"Init loss: {loss}")
         for epoch in range(self.start_epoch, config.TRAIN.EPOCHS):
             self.train_one_epoch(epoch, data_loader)
+            if self.preempted:
+                # the checkpoint is written; the grace window is for the
+                # save, not for a validate
+                break
             if (epoch % config.SAVE_FREQ == 0
                     or epoch == config.TRAIN.EPOCHS - 1):
                 self._save(epoch, "checkpoint")
@@ -254,10 +283,14 @@ class Trainer:
         self.logger.info(f"Training time {total_time}")
         return self
 
-    def _save(self, epoch: int, name: str) -> str:
+    def _save(self, epoch: int, name: str, in_epoch_opt_steps: int = 0) -> str:
+        """``in_epoch_opt_steps > 0`` marks a mid-epoch (preemption) save:
+        ``epoch`` is the epoch in progress, and a resume continues it after
+        that many updates instead of starting the next one."""
         state = {"model": self.model.state_dict(),
                  "optimizer": self.optimizer.state_dict(),
                  "step": self.step,
+                 "in_epoch_opt_steps": int(in_epoch_opt_steps),
                  "drop_path_generator": self.drop_path_generator.get_state()}
         return ckpt.save_checkpoint(self.config, epoch, state, self.min_loss,
                                     self.logger, name)
@@ -272,9 +305,52 @@ class Trainer:
         self.drop_path_generator.set_state(tree["drop_path_generator"])
         self.min_loss = float(tree.get("min_loss", 99999.0))
         epoch = int(tree.get("epoch", -1))
-        self.start_epoch = epoch + 1
-        self.logger.info(f"=> loaded successfully (epoch {epoch}, "
-                         f"{self.step} updates applied)")
+        # checkpoints written before mid-epoch saves existed lack the key
+        skip = int(tree.get("in_epoch_opt_steps", 0))
+        if skip > 0:
+            self._resume_skip_opt_steps = skip
+            self.start_epoch = epoch
+            self.logger.info(f"=> loaded successfully (epoch {epoch}, "
+                             f"continuing from optimizer step {skip}; "
+                             f"{self.step} updates applied)")
+        else:
+            self.start_epoch = epoch + 1
+            self.logger.info(f"=> loaded successfully (epoch {epoch}, "
+                             f"{self.step} updates applied)")
+
+    def step_model_flops(self, micro_batches: List[Dict[str, np.ndarray]]) -> int:
+        """Model FLOPs (forward + backward, utils/flops.py) of one update:
+        per micro-batch, its images and its live pairs (the mined-pair
+        buffer's ``pair_mask``; padding rows are not counted), or one pair
+        per stacked item."""
+        total = 0
+        for batch in micro_batches:
+            n_images = int(np.shape(batch["samples"])[0])
+            n_pairs = (int(np.asarray(batch["pair_mask"]).sum())
+                       if "pair_mask" in batch else n_images)
+            total += sum(pjs_step_flops(self.model, n_images, n_pairs))
+        return total
+
+    def _log_mfu(self, step_seconds: float, step_flops: float) -> str:
+        """The epoch's model-FLOP MFU line: mean model FLOPs per update over
+        the median time per update between syncs, against the card's dense
+        bf16 peak (or TPU.PEAK_TFLOPS where a config sets it); no
+        percentage where the peak is unknown."""
+        peak, name = bf16_peak_tflops(self.device, self.model.dtype,
+                                      self.config.TPU.PEAK_TFLOPS)
+        tfs = step_flops / step_seconds / 1e12
+        line = (f"Model FLOPs: {step_flops / 1e9:.3f} GF/update (forward + "
+                f"backward, counted from the pjs geometry) / "
+                f"{step_seconds * 1e3:.1f} ms per update (median between "
+                f"syncs, host input included) = {tfs:.2f} TF/s; ")
+        if peak is None:
+            line += (f"model-FLOP MFU not computed: the {self.model.dtype} "
+                     f"peak of {name} is unknown (set TPU.PEAK_TFLOPS)")
+        else:
+            line += (f"{100 * tfs / peak:.1f}% model-FLOP MFU of {name} "
+                     f"{peak:.1f} TF/s")
+        self.logger.info(line)
+        return line
 
     def train_one_epoch(self, epoch: int, data_loader: DataLoader) -> None:
         config = self.config
@@ -283,22 +359,55 @@ class Trainer:
         batch_time = AverageMeter()
         loss_meter = AverageMeter()
         norm_meter = AverageMeter()
+        # the MFU's step time: updates are asynchronous and only the prints
+        # sync, so one update's wall time means nothing alone; the median of
+        # (time between syncs / updates between syncs) over the epoch does
+        sync_rates, step_flops = [], []
+        last_sync, since_sync = None, 0
 
+        # a mid-epoch resume skips the updates already applied; their
+        # batches are still drawn and prepared, so that the sampler and
+        # np.random stay where an uninterrupted run has them
+        skip = (self._resume_skip_opt_steps
+                if epoch == self.start_epoch else 0)
         start = time.time()
         end = time.time()
         micro_acc = []
+        opt_idx = 0
         for idx, (samples, targets) in enumerate(data_loader):
             micro_acc.append(self.prepare_data(samples, targets))
             if len(micro_acc) < accum:
                 continue
+            if opt_idx < skip:
+                micro_acc = []
+                opt_idx += 1
+                end = time.time()
+                continue
             loss, grad_norm = self.train_step(micro_acc)
+            step_flops.append(self.step_model_flops(micro_acc))
             micro_acc = []
+            opt_idx += 1
+            since_sync += 1
+
+            if (self._preempt is not None
+                    and self._preempt.should_stop(opt_idx)):
+                self._save(epoch, "checkpoint", in_epoch_opt_steps=opt_idx)
+                self.preempted = True
+                self.logger.info(
+                    f"Preempted during epoch {epoch} after optimizer step "
+                    f"{opt_idx}: checkpoint saved, exiting cleanly (a rerun "
+                    f"continues this epoch from there)")
+                return
 
             if idx % config.PRINT_FREQ < accum or idx == num_steps - 1:
                 # .item() waits for the device: the only sync of the loop
                 loss_meter.update(loss.item(), np.shape(targets)[0] * accum)
                 norm_meter.update(grad_norm.item())
-                batch_time.update((time.time() - end) / accum)
+                now = time.time()
+                if last_sync is not None:
+                    sync_rates.append((now - last_sync) / since_sync)
+                last_sync, since_sync = now, 0
+                batch_time.update((now - end) / accum)
                 lr = self.schedule(self.step - 1)
                 etas = batch_time.avg * (num_steps - idx)
                 self.logger.info(
@@ -315,15 +424,22 @@ class Trainer:
         self.logger.info(
             f"EPOCH {epoch} training takes "
             f"{datetime.timedelta(seconds=int(epoch_time))}")
+        if len(sync_rates) >= 3:   # one or two intervals are noise
+            self._log_mfu(float(np.median(sync_rates)),
+                          float(np.mean(step_flops)))
 
     # ------------------------------------------------------------- throughput
+    def throughput_batch(self) -> np.ndarray:
+        """The batch ``throughput`` times: the first validation batch."""
+        images, _ = next(iter(self.get_dataloader("validation")))
+        return images
+
     def throughput(self, warmup: int = 50, timed: int = 30) -> float:
         """``warmup`` + ``timed`` forwards of the first validation batch ->
         images (pairs) per second. On a card the timed forwards run between
         two CUDA events and end in a synchronise; with TPU.PROFILE_DIR set
         a profiler trace of the timed region is written."""
-        images, _ = next(iter(self.get_dataloader("validation")))
-        x = self._to_device({"samples": images})["samples"]
+        x = self._to_device({"samples": self.throughput_batch()})["samples"]
         batch_size = x.shape[0]
         cuda = self.device.type == "cuda"
         self.model.eval()
