@@ -112,7 +112,29 @@ nothing from the JAX package. Phases, each printing its own lines:
     vit_ed_tpu_torch.geshame_evaluation`` (pairs/s, the metrics, every batch
     of stacked pairs through the loader's whole-batch pool, the loader
     alone); every run with
-    launch counts of its own, reset before and read after.
+    launch counts of its own, reset before and read after;
+17. the ViT embedding baselines: (a) the ViT of
+    configs/puzzle/vit_div2k_erosion7_4bin_patch8_64.yaml (embed 384, 12
+    blocks, 12 heads x 32, S = 65) from a seed, f32 card against f32 CPU
+    (embeddings and the triplet loss's gradients, 1e-3 of each max) and
+    bf16 against f32 (5e-2); (b) the 4-D qkv forward, dq and dkv at
+    main_vit's batch (B = 1,536 = 128 items x 4 directions x 3 images) and
+    the testing forward (B = 1,024) against plain as in phase 10, timed
+    with plain, SDPA and the bound, and a batch of 65,536 refused before
+    any launch; (c) ``python -m vit_ed_tpu_torch.main_vit --mode train`` on
+    phase 13's DIV2K (10 updates of 128 items: the step with the loader,
+    the device-only step, launches by shape, the MFU line of the ViT
+    count, peak memory, host ms per item by stage), then ``--mode eval``
+    and ``--mode throughput``; (d) ``--mode test`` on one 384 x 384 px
+    puzzle per subset (36 pieces, 10,080 embeddings each: ms per puzzle by
+    stage, embeddings/s, the distances against direct forwards, 1e-2);
+    (e) ``python -m vit_ed_tpu_torch.hisfrag_vit`` with ViT-S/16 at 512 px
+    (S = 1025, 6 heads of 64: the pair route): the pair qkv kernels at
+    B = 16 against plain and timed, ``--mode train`` on phase 9's train
+    split (10 updates of 16 images), then ``eval``, ``test`` on phase 5's
+    test split (metrics finite in [0, 1], the matrix against -(E E^T) of
+    direct forwards, 1e-2) and ``throughput``; every run with launch counts
+    of its own, reset before and read after.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -1180,6 +1202,8 @@ def step_breakdown(trainer):
           + ("" if rows else " (not measured: the profiler saw no device time)"))
     for key, t, cnt in rows[:14]:
         print(f"    {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}%  x{cnt:<4d} {key[:90]}")
+    return {"forward_ms": fwd, "backward_ms": bwd, "update_ms": upd, "device_ms": busy,
+            "wall_ms": wall, "launches": sum(r[2] for r in rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -1349,63 +1373,70 @@ HEADS_TIMED = (
 )
 
 
+def heads_layout_times(gen, layout, b, s, sk, backward):
+    """One 4-D layout's times at (B, S, Sk), bf16, H=12, d=32: the forward
+    beside plain, SDPA and the bound, and with ``backward`` dq and dkv alone
+    (the plain and SDPA backwards of dq, dk and dv together beside them).
+    Returns ({"": forward row, "_dq": ..., "_dkv": ...}, the printed line)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    slow = dict(n=5, inner=1) if s > 256 else {}
+    t = heads_inputs(gen, torch.bfloat16, b, s, sk)
+    tensors = [t[n] for n in HEADS_INPUTS[layout]]
+    q, k, v = A._heads_views(layout, tensors, HH)
+    sq = q.shape[2]
+    shape = f"B={b} H={HH} Sq={sq} Sk={sk} d={HD} bf16"
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        r = {"ms": timed(lambda: heads_call(layout, tensors)),
+             "plain_ms": timed(lambda: heads_plain(layout, tensors), **slow),
+             "library_ms": timed(lambda: sdpa(qc, kc, vc)), "shape": shape}
+    r["bound_ms"], r["bound_by"] = heads_bound(
+        "forward", b, sq, sk, shared=layout == "kv_shared")
+    rows = {"": r}
+    line = (f"  B={b} S={s} {layout:10s} forward {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} {r['bound_by']}, plain {r['plain_ms']:.4f}, "
+            f"sdpa {r['library_ms']:.4f})")
+    if backward:
+        scale = HD ** -0.5
+        do = A._to_heads(layout, rand(gen, b, sq, HH * HD, dtype=torch.bfloat16), HH)
+        grads = [torch.empty_like(x) for x in tensors]
+        dq, dk, dv = A._heads_views(layout, grads, HH)
+        stats = A._launch_heads_dq(layout, q, k, v, do, dq, scale)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qc, kc, vc))
+        lib_out, lib_do = sdpa(qg, kg, vg), do.contiguous()
+        lib = timed(lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), lib_do, retain_graph=True))
+        plain = timed(lambda: A.attention_backward_plain(q, k, v, do, scale), **slow)
+        for kind, fn in (
+                ("dq", lambda: A._launch_heads_dq(layout, q, k, v, do, dq, scale)),
+                ("dkv", lambda: A._launch_heads_dkv(layout, q, k, v, do, dk, dv,
+                                                    stats, scale))):
+            rb = {"ms": timed(fn), "plain_ms": plain, "library_ms": lib,
+                  "library": "sdpa backward: dq, dk and dv together",
+                  "plain": "attention_backward_plain: dq, dk and dv together",
+                  "shape": shape}
+            rb["bound_ms"], rb["bound_by"] = heads_bound(kind, b, sq, sk)
+            rows[f"_{kind}"] = rb
+            line += (f"; {kind} {rb['ms']:.4f} ms (bound {rb['bound_ms']:.4f} "
+                     f"{rb['bound_by']}; "
+                     f"{rate(kind, b, HH, sq, sk, HD, rb['ms'], rb['bound_ms'])})")
+        line += f"; plain backward {plain:.4f}, sdpa backward {lib:.4f}"
+    torch.cuda.empty_cache()
+    return rows, line
+
+
 def phase_heads_times(gen):
     print(f"== phase 11: 4-D kernel times (bf16, H=12, d=32): the puzzle path's "
           f"shapes B={PUZZLE_BATCH} S=65 (decoder), S=64 (encoder) and Sq=1 (the last "
           f"block's cross-attention), B=64 S=1025, "
           f"and the head_dim 32 scan's chunk B={SCAN32_IMAGES} S=1025", flush=True)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {}
     for b, s, sk_cross, tag, layouts in HEADS_TIMED:
-        slow = dict(n=5, inner=1) if s > 256 else {}
         for layout in layouts:
             sk = s if layout in ("qkv", "qkv_cls") else sk_cross
-            t = heads_inputs(gen, torch.bfloat16, b, s, sk)
-            tensors = [t[n] for n in HEADS_INPUTS[layout]]
-            q, k, v = A._heads_views(layout, tensors, HH)
-            sq = q.shape[2]
-            shape = f"B={b} H={HH} Sq={sq} Sk={sk} d={HD} bf16"
-            qc, kc, vc = (x.contiguous() for x in (q, k, v))
-            with torch.no_grad():
-                r = {"ms": timed(lambda: heads_call(layout, tensors)),
-                     "plain_ms": timed(lambda: heads_plain(layout, tensors), **slow),
-                     "library_ms": timed(lambda: sdpa(qc, kc, vc)), "shape": shape}
-            r["bound_ms"], r["bound_by"] = heads_bound(
-                "forward", b, sq, sk, shared=layout == "kv_shared")
-            res[f"{layout}@{tag}"] = r
-            line = (f"  B={b} S={s} {layout:10s} forward {r['ms']:.4f} ms (bound "
-                    f"{r['bound_ms']:.4f} {r['bound_by']}, plain {r['plain_ms']:.4f}, "
-                    f"sdpa {r['library_ms']:.4f})")
-            if layout in PUZZLE_PATH:
-                scale = HD ** -0.5
-                do = A._to_heads(layout, rand(gen, b, sq, HH * HD, dtype=torch.bfloat16), HH)
-                grads = [torch.empty_like(x) for x in tensors]
-                dq, dk, dv = A._heads_views(layout, grads, HH)
-                stats = A._launch_heads_dq(layout, q, k, v, do, dq, scale)
-                qg, kg, vg = (x.detach().requires_grad_() for x in (qc, kc, vc))
-                lib_out, lib_do = sdpa(qg, kg, vg), do.contiguous()
-                lib = timed(lambda: torch.autograd.grad(
-                    lib_out, (qg, kg, vg), lib_do, retain_graph=True))
-                plain = timed(lambda: A.attention_backward_plain(q, k, v, do, scale),
-                              **slow)
-                for kind, fn in (
-                        ("dq", lambda: A._launch_heads_dq(layout, q, k, v, do, dq, scale)),
-                        ("dkv", lambda: A._launch_heads_dkv(layout, q, k, v, do, dk, dv,
-                                                            stats, scale))):
-                    rb = {"ms": timed(fn), "plain_ms": plain, "library_ms": lib,
-                          "library": "sdpa backward: dq, dk and dv together",
-                          "plain": "attention_backward_plain: dq, dk and dv together",
-                          "shape": shape}
-                    rb["bound_ms"], rb["bound_by"] = heads_bound(kind, b, sq, sk)
-                    res[f"{layout}_{kind}@{tag}"] = rb
-                    line += (f"; {kind} {rb['ms']:.4f} ms (bound {rb['bound_ms']:.4f} "
-                             f"{rb['bound_by']}; "
-                             f"{rate(kind, b, HH, sq, sk, HD, rb['ms'], rb['bound_ms'])})")
-                line += f"; plain backward {plain:.4f}, sdpa backward {lib:.4f}"
-                del lib_out, qg, kg, vg
+            rows, line = heads_layout_times(gen, layout, b, s, sk, layout in PUZZLE_PATH)
+            res.update({f"{layout}{kind}@{tag}": r for kind, r in rows.items()})
             print(line, flush=True)
-            del t, tensors, q, k, v, qc, kc, vc
-            torch.cuda.empty_cache()
     return res
 
 
@@ -2513,6 +2544,563 @@ def phase_michigan(tmp, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the ViT embedding baselines: python -m vit_ed_tpu_torch.main_vit, .hisfrag_vit
+# ---------------------------------------------------------------------------
+
+VIT_CFG = os.path.join(ROOT, "configs", "puzzle", "vit_div2k_erosion7_4bin_patch8_64.yaml")
+VIT_BATCH = PUZZLE_BATCH              # items per step, each 4 directions x 3 images
+VIT_IMAGES = VIT_BATCH * 12           # 1,536 sequences of 65 tokens per forward
+VIT_TEST_IMAGES = VIT_BATCH * 8       # 1,024: 128 ordered pairs x 4 pairings x 2
+VIT_DEPTH = 12
+# launches of one main_vit step, (counter, B, H, Sq, Sk, D) -> count: 12
+# self-attentions at S = 65, each one forward, one dq and one dkv launch
+VIT_STEP_SHAPES = {(f"heads_qkv{kind}", VIT_IMAGES, HH, 65, 65, HD): VIT_DEPTH
+                   for kind in ("", "_dq", "_dkv")}
+# 17d: puzzles of 384 x 384 px cut at 64 px: 36 pieces, 1,260 ordered pairs
+VIT_PUZZLE_PX, VIT_PIECES = 384, 36
+# hisfrag_vit: ViT-S/16 at 512 px (S = 1025, 6 heads of 64: the pair route)
+HFV_OPTS = ("MODEL.TYPE", "vit", "MODEL.NUM_CLASSES", "384", "MODEL.VIT.EMBED_DIM", "384",
+            "MODEL.VIT.NUM_HEADS", "6", "MODEL.VIT.PATCH_SIZE", "16")
+HFV_BATCH = 16
+HFV_STEP_SHAPES = {(f"qkv{kind}", HFV_BATCH, H, 1025, 1025, D): VIT_DEPTH
+                   for kind in ("", "_dq", "_dkv")}
+
+
+def vit_argv(data, out, tag, mode, *extra):
+    return ["--cfg", VIT_CFG, "--data-path", data, "--mode", mode,
+            "--output", out, "--tag", tag, *extra]
+
+
+def hfv_argv(data, out, tag, mode, *extra, opts=()):
+    return ["--cfg", FLAGSHIP_CFG, "--data-path", data, "--mode", mode, "--output", out,
+            "--tag", tag, "--batch-size", str(HFV_BATCH), *extra,
+            "--opts", *HFV_OPTS, *opts]
+
+
+def parts_reading(g, r, c):
+    """(max |g - r|, the largest of max |g - r| / max |r| over the three
+    [..., C] parts of a fused [q | k | v] gradient): each part against its
+    own max."""
+    e = (g.float() - r.float()).abs()
+    worst = max((e[..., i * c:(i + 1) * c].max()
+                 / r[..., i * c:(i + 1) * c].float().abs().max().clamp(min=1e-30)).item()
+                for i in range(3))
+    return e.max().item(), worst
+
+
+def phase_vit_model(tmp):
+    """Phase 17a: the ViT of the committed vit config at full width and depth,
+    f32 card against f32 CPU (embeddings and the triplet loss's gradients),
+    bf16 card against f32 card."""
+    from vit_ed_tpu_torch.main_vit import VitTripletTrainer, parse_option
+
+    print(f"== phase 17a: the ViT of {os.path.relpath(VIT_CFG, ROOT)} (embed 384, 12 "
+          f"blocks, 12 heads x 32, patch 8 at 64 px: S = 65), seed 0: card against "
+          f"CPU on {card_line()}", flush=True)
+    rng = np.random.default_rng(3)
+    samples = rng.normal(size=(4, 4, 3, 64, 64, 3)).astype(np.float32)
+    emb, grads, losses = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        trainer = VitTripletTrainer(parse_option(vit_argv(
+            os.path.join(tmp, "none"), os.path.join(tmp, "out"), f"vit_model_{device}",
+            "train", "--device", device, "--disable_amp", "--opts",
+            "MODEL.DROP_PATH_RATE", "0.0", "TRAIN.AUTO_RESUME", "False")))
+        model = trainer.model
+        if device == "cpu":
+            print(f"  {sum(p.numel() for p in model.parameters())} params, depth "
+                  f"{len(model.blocks)}, {model.num_heads} heads of "
+                  f"{model.embed_dim // model.num_heads}, {model.num_patches} patches, "
+                  f"embedding width {model.head.weight.shape[0]}", flush=True)
+        trainer.setup_training(1)
+        batch = trainer._to_device(trainer.prepare_data(samples, np.arange(4)))
+        flat = batch["samples"].reshape(48, 64, 64, 3)
+        A.reset_launch_counts()
+        with torch.no_grad():
+            emb[device] = model.eval()(flat).float().cpu()
+            if device == "cuda":
+                model.dtype = torch.bfloat16
+                emb["bf16"] = model(flat).float().cpu()
+                model.dtype = torch.float32
+        model.train()
+        loss = trainer.loss_fn(model, batch)
+        loss.backward()
+        losses[device] = loss.item()
+        grads[device] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        print(f"  {device}: triplet loss {losses[device]:.6f}, {len(grads[device])} "
+              f"gradients; launches {nonzero(A.launches)}", flush=True)
+        if device == "cuda" and not (A.launches["heads_qkv"] > 0
+                                     and A.launches["heads_qkv_dkv"] == VIT_DEPTH):
+            raise AssertionError("the ViT did not run the 4-D kernels")
+        del trainer, model
+    torch.cuda.empty_cache()
+    top = emb["cpu"].abs().max().item()
+    e32 = (emb["cuda"] - emb["cpu"]).abs().max().item() / top
+    e16 = (emb["bf16"] - emb["cuda"]).abs().max().item() / top
+    worst, worst_name = 0.0, ""
+    for name, ref in grads["cpu"].items():
+        rel = ((grads["cuda"][name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"  embeddings (max |e| {top:.3f}): f32 max|card-CPU|/max {e32:.3e} (tol 1e-3), "
+          f"bf16 max|bf16-f32|/max {e16:.3e} (tol 5e-2); loss gap "
+          f"{abs(losses['cuda'] - losses['cpu']):.3e}; worst gradient "
+          f"max|card-CPU|/max|grad| = {worst:.3e} at {worst_name} (tol 1e-3)", flush=True)
+    if not (e32 <= 1e-3 and e16 <= 5e-2 and worst <= 1e-3 and losses["cpu"] > 0
+            and abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+            and torch.isfinite(emb["bf16"]).all()):
+        raise AssertionError("the full-width ViT disagrees with the CPU")
+
+
+def phase_vit_kernels(gen):
+    """Phase 17b: the 4-D qkv kernels at main_vit's batches (B = 1,536 in
+    training, 1,024 in testing; S = 65, 12 heads of 32) against plain, then
+    timed; a batch over the grid's limit raises."""
+    print(f"== phase 17b: 4-D qkv kernels at main_vit's batches (S=65, H={HH}, d={HD}): "
+          f"B={VIT_IMAGES} forward, dq, dkv and B={VIT_TEST_IMAGES} forward against plain "
+          f"(last key dominant, outputs filled with NaN), then timed, on {card_line()}",
+          flush=True)
+    c, err = HH * HD, {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (VIT_IMAGES, VIT_TEST_IMAGES):
+            qkv = rand(gen, b, 65, 3 * c, dtype=torch.float32)
+            probe_packed(qkv[..., :c], qkv[..., c:], HH)
+            qkv = qkv.to(dtype)
+            with torch.no_grad():
+                ref = heads_plain("qkv", [qkv])
+                out = heads_call("qkv", [qkv], out=poison(ref))
+            torch.cuda.synchronize()
+            e, rel = forward_reading(out, ref)
+            err["fwd"] = max(err["fwd"], e)
+            line = (f"  qkv {str(dtype)[6:]:8s} B={b} S=65 forward max|kernel-plain|="
+                    f"{e:.3e}, /max|plain|={rel:.3e}")
+            ok = rel <= TOL[dtype]
+            if b == VIT_IMAGES:
+                x = qkv.detach().requires_grad_()
+                o = A.fused_attention_packed_qkv(x, HH)
+                do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+                got = torch.autograd.grad(o, x, do, retain_graph=True)[0]
+                again = torch.autograd.grad(o, x, do)[0]
+                (want,) = heads_plain_grads("qkv", [qkv], do)
+                torch.cuda.synchronize()
+                ge, worst = parts_reading(got, want, c)
+                err["bwd"] = max(err["bwd"], ge)
+                ok = (ok and worst <= TOL[dtype] and torch.equal(got, again)
+                      and bool(torch.isfinite(got).all()))
+                line += (f"; dq, dk, dv /max|grad| (each its own) <= {worst:.3e}, "
+                         f"bit-equal twice")
+                del x, o, do, got, again, want
+            print(f"{line} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"heads qkv {dtype} B={b}: kernel != plain")
+            del qkv, ref, out
+            torch.cuda.empty_cache()
+    before = dict(A.launches)
+    big = torch.zeros(1, 65, 3 * c, device="cuda", dtype=torch.bfloat16).expand(
+        A._MAX_GRID + 1, -1, -1)
+    try:
+        A.fused_attention_packed_qkv(big, HH)
+    except ValueError as e:
+        print(f"  B={A._MAX_GRID + 1}: the wrapper raises before launching ({e})", flush=True)
+    else:
+        raise AssertionError(f"a batch of {A._MAX_GRID + 1} did not raise")
+    if dict(A.launches) != before:
+        raise AssertionError("the over-limit batch launched a kernel")
+    times = {}
+    for b, backward, tag in ((VIT_IMAGES, True, "train"), (VIT_TEST_IMAGES, False, "test")):
+        rows, line = heads_layout_times(gen, "qkv", b, 65, 65, backward)
+        times.update({f"{kind}@{tag}": r for kind, r in rows.items()})
+        print(line, flush=True)
+    return err, times
+
+
+def phase_vit_train(tmp):
+    """Phase 17c: ``python -m vit_ed_tpu_torch.main_vit --mode train`` on
+    phase 13's synthetic DIV2K (10 updates of 128 items), then ``--mode
+    eval`` and ``--mode throughput``, each with launch counts of its own."""
+    from vit_ed_tpu_torch import main_vit
+
+    card = card_line()
+    print(f"== phase 17c: python -m vit_ed_tpu_torch.main_vit --mode train (bf16, drop "
+          f"path 0.1, {VIT_BATCH} items x 12 images = {VIT_IMAGES} sequences per step)",
+          flush=True)
+    data, out = os.path.join(tmp, "div2k"), os.path.join(tmp, "out")
+    steps = []
+    inner = main_vit.VitTripletTrainer.train_step
+
+    def recorded(self, micro_batches):
+        before_shapes = dict(A.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item(),
+                      "grad_norm": norm.item(),
+                      "shapes": {k: n - before_shapes.get(k, 0)
+                                 for k, n in A.launches_by_shape.items()
+                                 if n > before_shapes.get(k, 0)}})
+        return loss, norm
+
+    opts = ("--opts", "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "2")
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    main_vit.VitTripletTrainer.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = main_vit.main(vit_argv(data, out, "vit_train", "train", *opts))
+    finally:
+        main_vit.VitTripletTrainer.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the main path's counts are read here, before the other modes run
+    shapes = dict(A.launches_by_shape)
+    ckpt_path = os.path.join(trainer.config.OUTPUT, "checkpoint.ckpt")
+    mfu = [line.split("INFO ", 1)[-1].strip() for line in open(os.path.join(
+        trainer.config.OUTPUT, "log_rank0train.txt")) if "Model FLOPs" in line]
+    ms = [s["ms"] for s in steps[1:]]
+    print(f"  {card}: {len(steps)} optimizer steps of {VIT_BATCH} items; step "
+          f"{np.median(ms):.1f} ms median ({min(ms):.1f}-{max(ms):.1f}, first "
+          f"{steps[0]['ms']:.1f}) with the loader; {VIT_BATCH * len(ms) / (sum(ms) / 1e3):.1f} "
+          f"items/s = {VIT_IMAGES * len(ms) / (sum(ms) / 1e3):.1f} images/s; {wall:.1f}s "
+          f"with model build and two validates; peak device memory {peak:.2f} GiB", flush=True)
+    print(f"  loss {[round(s['loss'], 4) for s in steps]}")
+    print(f"  grad_norm {[round(s['grad_norm'], 3) for s in steps]}")
+    print(f"  {card}: MFU line as logged: {mfu}", flush=True)
+    print(f"  launches per step by shape (counter, B, Sq, Sk, launches) "
+          f"{sorted((k[0], k[1], k[3], k[4], n) for k, n in steps[-1]['shapes'].items())}; "
+          f"--mode train in all {sorted((k[0], k[1], k[3], k[4], n) for k, n in shapes.items())}",
+          flush=True)
+    if len(steps) != 10 or trainer.step != len(steps):
+        raise AssertionError(f"expected 10 optimizer steps, ran {len(steps)}")
+    for s in steps:
+        if not (np.isfinite(s["loss"]) and s["loss"] > 0 and np.isfinite(s["grad_norm"])):
+            raise AssertionError(f"loss / grad_norm not finite: {s}")
+        if s["shapes"] != VIT_STEP_SHAPES:
+            raise AssertionError(f"unexpected launches in a step: {s['shapes']}")
+    if not mfu or "vit geometry" not in mfu[0] or "989.4 TF/s" not in mfu[0]:
+        raise AssertionError(f"no MFU line of the ViT count against the card's peak: {mfu}")
+    if any(not k[0].startswith("heads_qkv") for k in shapes):
+        raise AssertionError(f"--mode train launched another kernel: {shapes}")
+    breakdown = step_breakdown(trainer)
+    print(f"  {card}: device-only step {sum(breakdown[k] for k in ('forward_ms', 'backward_ms', 'update_ms')):.1f} "
+          f"ms by CUDA events; the profiler's device busy share "
+          f"{100 * breakdown['device_ms'] / max(breakdown['wall_ms'], 1e-9):.1f}% of its wall, "
+          f"{breakdown['launches']} launches per step", flush=True)
+    from PIL import Image
+
+    host_input_cost(trainer, div2k_stages() + [("rotate", Image.Image, "rotate")],
+                    "PNG decode + flips, warp, crops, then 12 x (rotation, resize, "
+                    "normalize) as TwoImgSyncEval of the image with itself")
+    del trainer
+    torch.cuda.empty_cache()
+
+    eval_argv = vit_argv(data, out, "vit_eval", "eval", "--pretrained", ckpt_path, *opts)
+    A.reset_launch_counts()
+    loss = main_vit.main(eval_argv)
+    eval_counts = nonzero(A.launches)
+    A.reset_launch_counts()
+    rate = main_vit.main(vit_argv(data, out, "vit_eval", "throughput", "--pretrained",
+                                  ckpt_path, *opts))
+    torch.cuda.synchronize()
+    thr_counts = nonzero(A.launches)
+    print(f"  {card}: --mode eval from the checkpoint: triplet loss {loss:.4f}, launches "
+          f"{eval_counts}; --mode throughput: {rate:.1f} images/s ({VIT_IMAGES} images of "
+          f"one validation batch, 30 forwards between CUDA events; the JAX entry raises "
+          f"here), launches {thr_counts}", flush=True)
+    if not (0.0 <= loss < 1.0 and rate > 0 and eval_counts.get("heads_qkv", 0) > 0
+            and thr_counts.get("heads_qkv", 0) > 0):
+        raise AssertionError(f"eval gave {loss}, throughput {rate}")
+    return shapes, ckpt_path
+
+
+def write_vit_puzzles(root, seed=0):
+    """One synthetic VIT_PUZZLE_PX-square puzzle in each of Cho/, McGill/
+    (PNG) and BGU/ (JPEG), smooth colour fields made from a seed."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in EVAL_SUBSETS:
+        os.makedirs(os.path.join(root, sub))
+        name = "0.jpg" if sub == "BGU" else "0.png"
+        small = rng.integers(0, 256, size=(14, 14, 3), dtype=np.uint8)
+        img = Image.fromarray(small).resize((VIT_PUZZLE_PX, VIT_PUZZLE_PX), Image.BICUBIC)
+        img.save(os.path.join(root, sub, name), **({"quality": 95}
+                                                   if name.endswith(".jpg") else {}))
+
+
+def phase_vit_test(tmp, ckpt_path):
+    """Phase 17d: ``python -m vit_ed_tpu_torch.main_vit --mode test`` with
+    phase 17c's checkpoint on one 36-piece puzzle per subset."""
+    from vit_ed_tpu_torch import main_vit
+    from vit_ed_tpu_torch.data.pieces import PiecesDatasetTriplet
+    from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
+
+    n_pairs = VIT_PIECES * (VIT_PIECES - 1)
+    print(f"== phase 17d: python -m vit_ed_tpu_torch.main_vit --mode test (bf16) on one "
+          f"{VIT_PUZZLE_PX} x {VIT_PUZZLE_PX} px puzzle per subset: {VIT_PIECES} pieces, "
+          f"{n_pairs} ordered pairs, {8 * n_pairs} embeddings each", flush=True)
+    card = card_line()
+    data, work = os.path.join(tmp, "vit_puzzles"), os.path.join(tmp, "vit_cwd")
+    write_vit_puzzles(data)
+    os.makedirs(work)
+    argv = vit_argv(data, os.path.join(tmp, "out"), "vit_test", "test",
+                    "--pretrained", ckpt_path)
+    cwd = os.getcwd()
+    os.chdir(work)        # the entry writes output/reconstructed/<subset>/ here
+    A.reset_launch_counts()
+    try:
+        trainer = main_vit.VitTripletTrainer(main_vit.parse_option(argv))
+        records = trainer.testing()
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    shapes = dict(A.launches_by_shape)
+    log = open(os.path.join(trainer.config.OUTPUT, "log_rank0test.txt")).read()
+    avg = [line.split("INFO ", 1)[1] for line in log.splitlines() if "Average_Results" in line]
+    stages = {k: np.asarray([r["seconds"][k] for r in records]) * 1e3
+              for k in records[0]["seconds"]}
+    n_emb = 8 * n_pairs * len(records)
+    print(f"  {card}: {len(records)} puzzles; ms per puzzle by stage (median): "
+          + ", ".join(f"{k} {np.median(v):.1f}" for k, v in stages.items())
+          + f"; {n_emb / (stages['embed'].sum() / 1e3):.1f} embeddings/s over the embed "
+          f"stage (the loader's pairings and the forwards)", flush=True)
+    for line in avg:
+        print(f"  {line}")
+    ds = PiecesDatasetTriplet(records[0]["pieces"], transform=TwoImgSyncEval(64))
+    t0 = time.perf_counter()
+    for i in range(64):
+        ds[i]
+    per = (time.perf_counter() - t0) / 64
+    print(f"  host: {per * 1e3:.2f} ms per pairing item (2 LAB -> RGB, 8 rotations and "
+          f"resizes, one thread) = {per * n_pairs:.2f} s of host work per puzzle over "
+          f"{trainer.config.DATA.NUM_WORKERS} loader threads", flush=True)
+    print(f"  launches by shape (counter, B, Sq, Sk, launches) "
+          f"{sorted((k[0], k[1], k[3], k[4], n) for k, n in shapes.items())}", flush=True)
+    if len(records) != 3 or len(avg) != 3:
+        raise AssertionError(f"{len(records)} puzzles and {len(avg)} Average_Results lines")
+    for r in records:
+        d = r["distances"]
+        if d.shape != (4, VIT_PIECES, VIT_PIECES) or np.isfinite(d).sum() != 4 * n_pairs:
+            raise AssertionError("the distance tensor is not [4, N, N] with a finite off-diagonal")
+    # the entry's distances against direct forwards of the same items
+    rec = records[0]
+    ds = PiecesDatasetTriplet(rec["pieces"], transform=TwoImgSyncEval(64))
+    picks = [0, 17, 500, n_pairs - 1]
+    x = torch.from_numpy(np.stack([ds[i][0] for i in picks])).cuda()
+    with torch.inference_mode():
+        e = trainer.model.eval()(x.reshape(-1, 64, 64, 3)).float().cpu().numpy()
+    direct = main_vit.cosine_distance_np(*np.split(e.reshape(len(picks), 4, 2, -1), 2, axis=2))
+    got = np.stack([[rec["distances"][side, ds.entries[i][0], ds.entries[i][1]] / 1000.0
+                     for side in main_vit.SIDE_ORDER] for i in picks])
+    gap = np.abs(direct[..., 0] - got).max()
+    print(f"  {len(picks)} pairs' distances against direct forwards of their 8 images: "
+          f"max |entry - direct| = {gap:.3e} (tol 1e-2)", flush=True)
+    if not gap <= 1e-2:
+        raise AssertionError("the testing distances differ from direct forwards")
+    if any(k[0] != "heads_qkv" for k in shapes):
+        raise AssertionError(f"testing launched another kernel: {shapes}")
+    del trainer
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_vit_pair_kernels(gen):
+    """Phase 17e, first: the pair qkv forward and its backward at
+    hisfrag_vit's shape (B = 16 images, S = 1025, 6 heads of 64) against
+    plain, then timed."""
+    print(f"== phase 17e: hisfrag_vit (ViT-S/16 at 512 px: S=1025, {H} heads of {D}, the "
+          f"pair route); the pair qkv kernels at B={HFV_BATCH} against plain, then timed, on "
+          f"{card_line()}", flush=True)
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        kern, plain, _lib, _ = cases(gen, dtype, HFV_BATCH, 1025, 1024, probe=True)["qkv"]
+        ref = plain()
+        out = kern(poison(ref))
+        torch.cuda.synchronize()
+        e, rel = forward_reading(out, ref)
+        t = vjp_inputs(gen, dtype, HFV_BATCH, 1025, 1025)
+        args, o, do = vjp_graph("qkv", t)
+        got = torch.autograd.grad(o, args, do, retain_graph=True)[0]
+        again = torch.autograd.grad(o, args, do)[0]
+        (want,) = plain_grads("qkv", t, do)
+        torch.cuda.synchronize()
+        ge, worst = parts_reading(got, want, C)
+        err["fwd"], err["bwd"] = max(err["fwd"], e), max(err["bwd"], ge)
+        ok = (rel <= TOL[dtype] and worst <= TOL[dtype] and torch.equal(got, again)
+              and bool(torch.isfinite(got).all()))
+        print(f"  qkv {str(dtype)[6:]:8s} B={HFV_BATCH} S=1025 forward /max|plain|={rel:.3e}; "
+              f"dq, dk, dv /max|grad| (each its own) <= {worst:.3e}, bit-equal twice "
+              f"tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"pair qkv {dtype} B={HFV_BATCH}: kernel != plain")
+        del ref, out, t, args, o, do, got, again, want
+    cs = cases(gen, torch.bfloat16, HFV_BATCH, 1025, 1024)
+    kern, plain, lib, _ = cs["qkv"]
+    r = {"ms": timed(kern), "plain_ms": timed(plain, inner=1), "library_ms": timed(lib)}
+    r["bound_ms"], r["bound_by"] = bound("qkv", HFV_BATCH, 1025, 1025)
+    print(f"  qkv B={HFV_BATCH} S=1025 forward {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+          f"{r['bound_by']}, plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f})", flush=True)
+    del cs
+    t = vjp_inputs(gen, torch.bfloat16, HFV_BATCH, 1025, 1025)
+    rows = backward_rows("qkv", t, HFV_BATCH, 1025, 1025, f"B={HFV_BATCH} S=1025")
+    del t
+    torch.cuda.empty_cache()
+    return err, {"": r, "_dq": rows["qkv_dq"], "_dkv": rows["qkv_dkv"]}
+
+
+def phase_hisfrag_vit(tmp):
+    """Phase 17e: ``python -m vit_ed_tpu_torch.hisfrag_vit --mode train`` on
+    phase 9's synthetic train split, then ``eval``, ``test`` (phase 5's test
+    split) and ``throughput``, each with launch counts of its own."""
+    from vit_ed_tpu_torch import hisfrag_vit
+
+    card = card_line()
+    print(f"  python -m vit_ed_tpu_torch.hisfrag_vit --mode train (bf16, drop path 0.1, "
+          f"batch {HFV_BATCH}, --opts {' '.join(HFV_OPTS)})", flush=True)
+    data = os.path.join(tmp, "hfvit")
+    os.makedirs(data)
+    os.symlink(os.path.join(tmp, "train_data", "train"), os.path.join(data, "train"))
+    os.symlink(os.path.join(tmp, "data", "test"), os.path.join(data, "test"))
+    out = os.path.join(tmp, "out")
+    steps = []
+    inner = hisfrag_vit.HisfragVitTrainer.train_step
+
+    def recorded(self, micro_batches):
+        before_shapes = dict(A.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item(),
+                      "shapes": {k: n - before_shapes.get(k, 0)
+                                 for k, n in A.launches_by_shape.items()
+                                 if n > before_shapes.get(k, 0)}})
+        return loss, norm
+
+    opts = ("TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "2")
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    hisfrag_vit.HisfragVitTrainer.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = hisfrag_vit.main(hfv_argv(data, out, "hfv_train", "train", opts=opts))
+    finally:
+        hisfrag_vit.HisfragVitTrainer.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    shapes = dict(A.launches_by_shape)
+    ckpt_path = os.path.join(trainer.config.OUTPUT, "checkpoint.ckpt")
+    mfu = [line.split("INFO ", 1)[-1].strip() for line in open(os.path.join(
+        trainer.config.OUTPUT, "log_rank0train.txt")) if "Model FLOPs" in line]
+    ms = [s["ms"] for s in steps[1:]]
+    print(f"  {card}: {len(steps)} optimizer steps of {HFV_BATCH} images; step "
+          f"{np.median(ms):.1f} ms median ({min(ms):.1f}-{max(ms):.1f}, first "
+          f"{steps[0]['ms']:.1f}) with the loader; {HFV_BATCH * len(ms) / (sum(ms) / 1e3):.1f} "
+          f"images/s; {wall:.1f}s with model build and two validates; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  loss {[round(s['loss'], 4) for s in steps]}")
+    print(f"  {card}: MFU line as logged: {mfu}", flush=True)
+    print(f"  launches per step by shape (counter, B, Sq, Sk, launches) "
+          f"{sorted((k[0], k[1], k[3], k[4], n) for k, n in steps[-1]['shapes'].items())}",
+          flush=True)
+    if len(steps) != 10 or trainer.step != len(steps):
+        raise AssertionError(f"expected 10 optimizer steps, ran {len(steps)}")
+    for s in steps:
+        if not (np.isfinite(s["loss"]) and s["loss"] >= 0):
+            raise AssertionError(f"loss not finite: {s}")
+        if s["shapes"] != HFV_STEP_SHAPES:
+            raise AssertionError(f"unexpected launches in a step: {s['shapes']}")
+    if not mfu or "vit geometry" not in mfu[0] or "989.4 TF/s" not in mfu[0]:
+        raise AssertionError(f"no MFU line of the ViT count against the card's peak: {mfu}")
+    breakdown = step_breakdown(trainer)
+    print(f"  {card}: device-only step {sum(breakdown[k] for k in ('forward_ms', 'backward_ms', 'update_ms')):.1f} "
+          f"ms by CUDA events; the profiler's device busy share "
+          f"{100 * breakdown['device_ms'] / max(breakdown['wall_ms'], 1e-9):.1f}% of its wall, "
+          f"{breakdown['launches']} launches per step", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    results = {}
+    for mode in ("eval", "test", "throughput"):
+        A.reset_launch_counts()
+        t0 = time.time()
+        results[mode] = hisfrag_vit.main(hfv_argv(data, out, "hfv_eval", mode,
+                                                  "--pretrained", ckpt_path, opts=opts))
+        torch.cuda.synchronize()
+        print(f"  --mode {mode}: {time.time() - t0:.1f}s, launches {nonzero(A.launches)}",
+              flush=True)
+        if A.launches["qkv"] <= 0:
+            raise AssertionError(f"--mode {mode} never launched the pair qkv kernel")
+    metrics, dm, labels = results["test"]
+    print(f"  {card}: val 1 - mAP {results['eval']:.4f}; test mAP {metrics[0]:.3f} Top 1 "
+          f"{metrics[1]:.3f} Pr@k10 {metrics[2]:.3f} Pr@k100 {metrics[3]:.3f} over "
+          f"{len(labels)} fragments; throughput {results['throughput']:.1f} images/s",
+          flush=True)
+    if not (all(np.isfinite(float(m)) and 0.0 <= float(m) <= 1.0 for m in metrics)
+            and 0.0 <= results["eval"] <= 1.0 and results["throughput"] > 0
+            and dm.shape == (len(labels), len(labels))):
+        raise AssertionError("hisfrag_vit's metrics are not finite and in [0, 1]")
+    # the distance matrix against -(E E^T) of direct forwards
+    trainer = hisfrag_vit.HisfragVitTrainer(hisfrag_vit.parse_option(
+        hfv_argv(data, out, "hfv_eval", "test", "--pretrained", ckpt_path, opts=opts)))
+    ds = trainer.get_dataloader("test").dataset
+    picks = [0, 5, 17, 40, len(ds) - 1]
+    x = torch.from_numpy(np.stack([ds[i][0] for i in picks])).cuda()
+    with torch.inference_mode():
+        e = trainer.model.eval()(x).float().cpu().numpy()
+    direct = -(e @ e.T)
+    got = dm[np.ix_(picks, picks)]
+    gap = np.abs(got - direct).max() / np.abs(direct).max()
+    print(f"  {len(picks)} fragments: max |matrix - (-(E E^T))| / max = {gap:.3e} (tol 1e-2)",
+          flush=True)
+    if not gap <= 1e-2:
+        raise AssertionError("the distance matrix differs from direct forwards")
+    del trainer
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_vit(tmp, gen):
+    """Phase 17: the ViT embedding baselines. Returns the kernels' rows."""
+    t0 = time.time()
+    phase_vit_model(tmp)
+    heads_err, heads_times = phase_vit_kernels(gen)
+    train_shapes, ckpt_path = phase_vit_train(tmp)
+    test_shapes = phase_vit_test(tmp, ckpt_path)
+    pair_err, pair_times = phase_vit_pair_kernels(gen)
+    hfv_shapes = phase_hisfrag_vit(tmp)
+    print(f"  phase 17 took {time.time() - t0:.1f}s", flush=True)
+
+    # one row per kernel and shape: ``launches`` of main_vit --mode train (the
+    # testing forward's of --mode test) and hisfrag_vit --mode train, each at
+    # its own shape; the times of 17b and 17e at those shapes
+    rows = []
+    for kind, source, replaces in (("", HEADS_SOURCE, HEADS_REPLACES["forward"]),
+                                   ("_dq", HEADS_BWD_SOURCE, HEADS_REPLACES["dq"]),
+                                   ("_dkv", HEADS_BWD_SOURCE, HEADS_REPLACES["dkv"])):
+        rows.append({
+            "name": f"heads_attention_qkv{kind}_vit_b{VIT_IMAGES}", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": train_shapes.get((f"heads_qkv{kind}", VIT_IMAGES, HH, 65, 65, HD), 0),
+            "max_abs_err": heads_err["bwd" if kind else "fwd"],
+            **heads_times[f"{kind}@train"]})
+    rows.append({
+        "name": f"heads_attention_qkv_vit_test_b{VIT_TEST_IMAGES}", "route": "cuda",
+        "source": HEADS_SOURCE, "replaces": HEADS_REPLACES["forward"],
+        "launches": by_shape(test_shapes, "heads_qkv", 65, 65),
+        "max_abs_err": heads_err["fwd"], **heads_times["@test"]})
+    for kind, source, replaces in (("", SOURCE, REPLACES["qkv"]),
+                                   ("_dq", HEADS_BWD_SOURCE, BWD_REPLACES),
+                                   ("_dkv", HEADS_BWD_SOURCE, BWD_REPLACES)):
+        rows.append({
+            "name": f"pair_attention_qkv{kind}_vit_s1025", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": hfv_shapes.get((f"qkv{kind}", HFV_BATCH, H, 1025, 1025, D), 0),
+            "max_abs_err": pair_err["bwd" if kind else "fwd"], **pair_times[kind]})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -2550,6 +3138,7 @@ def main():
         scan32_shapes = phase_heads_scan(tmp)
         eval_shapes_run, eval_times, n_puzzles = phase_puzzle_eval(tmp, puzzle_ckpt, gen)
         michigan_rows = phase_michigan(tmp, gen)
+        vit_rows = phase_vit(tmp, gen)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -2634,6 +3223,8 @@ def main():
         f"{k['name']} {k['launches'] / n_puzzles:.0f}" for k in kernels[-len(eval_times):]))
     # the Michigan slice's pair kernels at S = 577 (phase 16)
     kernels += michigan_rows
+    # the ViT baselines' kernels at their own shapes (phase 17)
+    kernels += vit_rows
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its main path")

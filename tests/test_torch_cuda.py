@@ -771,3 +771,72 @@ def test_hisfrag_train_steps_are_bit_reproducible(card, tmp_path):
     assert dtype == torch.bfloat16
     differ = [n for n in a if not torch.equal(a[n], b[n])]
     assert not differ, differ
+
+
+# ---------------------------------------------------------------------------
+# the ViT embedding baselines: main_vit's 4-D qkv at its batch, the grid limit
+# ---------------------------------------------------------------------------
+
+VIT_C, VIT_H = 384, 12     # 12 heads of head_dim 32 (vit_div2k patch8_64)
+
+
+def _vit_qkv(batch, dtype, card, seed=0):
+    """A fused qkv [batch, 65, 3C] on the card with the last key of every
+    (batch, head) dominant, and its q, k, v [B, H, S, D] views."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(batch, 65, 3 * VIT_C, generator=gen)
+    dominant_last_key(*A._heads_views("qkv", [qkv], VIT_H))
+    qkv = qkv.to(dtype).to(card)
+    return qkv, A._heads_views("qkv", [qkv], VIT_H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1024, 1536])
+def test_heads_qkv_at_the_vit_batches(card, batch, dtype):
+    """main_vit's self-attention at S = 65, 12 heads of 32: B = 1,536 (128
+    items x 4 directions x 3 images, training) and 1,024 (128 ordered pairs
+    x 8 images, testing). The forward written into a NaN-filled output, dq
+    and dk/dv, against the plain versions on the card, each against its own
+    max; two backward runs give the same bits."""
+    qkv, (q, k, v) = _vit_qkv(batch, dtype, card)
+    scale = (VIT_C // VIT_H) ** -0.5
+    with torch.inference_mode():
+        ref = A._from_heads("qkv", A.heads_attention_plain(q, k, v, scale))
+        poisoned = _poison(ref, card)
+        out = A._attend("qkv", [qkv], VIT_H, None, out=poisoned)
+        torch.cuda.synchronize()
+    assert out.data_ptr() == poisoned.data_ptr() and out.shape == (batch, 65, VIT_C)
+    assert _fwd_err(out, ref) <= FWD_TOL[dtype]
+    if batch != 1536:          # testing runs the forward only
+        return
+    do = torch.randn(ref.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(card)
+    x = qkv.detach().requires_grad_()
+    got, again = (torch.autograd.grad(A.fused_attention_packed_qkv(x, VIT_H), x, do)[0]
+                  for _ in range(2))
+    want = torch.empty_like(qkv)
+    for buf, g in zip(A._heads_views("qkv", [want], VIT_H), A.attention_backward_plain(
+            q, k, v, A._to_heads("qkv", do, VIT_H), scale)):
+        buf.copy_(g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for part in range(3):      # dq, dk, dv: each against its own max
+        cols = slice(part * VIT_C, (part + 1) * VIT_C)
+        assert _grad_err(got[..., cols], want[..., cols]) <= BWD_TOL[dtype], part
+
+
+@pytest.mark.cuda
+def test_a_batch_over_the_grid_limit_raises_before_launching(card):
+    """gridDim.z holds the batch: 65,536 sequences raise in the wrapper, on
+    the 4-D route (12 heads of 32) and the pair route (6 heads of 64), and
+    nothing is launched."""
+    A.reset_launch_counts()
+    qkv = torch.zeros(1, 2, 3 * VIT_C, device=card, dtype=torch.bfloat16)
+    big = qkv.expand(A._MAX_GRID + 1, -1, -1)
+    for heads in (VIT_H, 6):
+        with pytest.raises(ValueError, match="65535"):
+            A.fused_attention_packed_qkv(big, heads)
+    assert not any(A.launches.values())
+    out = A.fused_attention_packed_qkv(qkv.expand(A._MAX_GRID, -1, -1), VIT_H)
+    torch.cuda.synchronize()
+    assert out.shape == (A._MAX_GRID, 2, VIT_C) and A.launches["heads_qkv"] == 1

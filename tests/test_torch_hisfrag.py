@@ -161,6 +161,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             port / "data" / "michigan.py", port / "data" / "geshaem.py",
             port / "data" / "grouping.py", port / "metrics" / "map_prak.py",
             port / "utils" / "preempt.py", port / "utils" / "flops.py"} <= set(files)
+    # the ViT embedding baselines
+    assert {port / "main_vit.py", port / "hisfrag_vit.py", port / "models" / "vit.py",
+            port / "train" / "losses.py", port / "data" / "div2k.py"} <= set(files)
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_ed_tpu", "cv2",
               "pandas"}
     found = [(str(f.relative_to(ROOT)), name) for f in files

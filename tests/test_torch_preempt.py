@@ -193,7 +193,7 @@ def _mfu_line(monkeypatch, device_name, device="cuda", dtype=torch.bfloat16,
         device=torch.device(device), model=types.SimpleNamespace(dtype=dtype),
         config=types.SimpleNamespace(TPU=types.SimpleNamespace(PEAK_TFLOPS=configured)),
         logger=types.SimpleNamespace(info=lines.append))
-    out = Trainer._log_mfu(stub, 0.1, 4.947e13)    # 494.7 TF/s
+    out = Trainer._log_mfu(stub, 0.1, 4.947e13, "pjs")    # 494.7 TF/s
     assert lines == [out]
     return out
 
@@ -208,6 +208,7 @@ def test_mfu_line_reads_the_cards_peak(monkeypatch):
     line = _mfu_line(monkeypatch, "NVIDIA H100 80GB HBM3")
     assert "494.70 TF/s" in line
     assert "50.0% model-FLOP MFU of NVIDIA H100 80GB HBM3 989.4 TF/s" in line
+    assert "counted from the pjs geometry" in line
     for args in (("Some Other GPU",), ("NVIDIA H100 80GB HBM3", "cuda", torch.float32),
                  ("NVIDIA H100 80GB HBM3", "cpu")):
         line = _mfu_line(monkeypatch, *args)

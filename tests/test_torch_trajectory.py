@@ -82,16 +82,19 @@ def _jax_loss_fn(config):
 
 
 def _jax_run(config, jax_params, batches, accum, dtype=jnp.float32, kw=None,
-             criterion=None):
-    """The JAX trajectory on the port's (already LR-scaled) config, for a
-    model built from ``kw`` (default: this file's). ``criterion`` None runs
-    the hisfrag mined-pair loss; a criterion runs ``make_train_step``'s
+             criterion=None, model=None, loss_fn=None):
+    """The JAX trajectory on the port's (already LR-scaled) config, for
+    ``model`` (default: a ViT-ED built from ``kw``, default this file's).
+    ``loss_fn`` (``make_train_step``'s) wins; else ``criterion`` None runs
+    the hisfrag mined-pair loss, and a criterion runs ``make_train_step``'s
     default supervised pair loss with it."""
-    model = JaxViTED(**(kw or KW), use_pallas=True, dtype=dtype)
+    if model is None:
+        model = JaxViTED(**(kw or KW), use_pallas=True, dtype=dtype)
     schedule = jax_build_schedule(config, STEPS_PER_EPOCH)
     params = jax.tree.map(jnp.asarray, jax_params)
     tx = jax_build_optimizer(config, schedule, params)
-    loss_fn = _jax_loss_fn(config) if criterion is None else None
+    if loss_fn is None and criterion is None:
+        loss_fn = _jax_loss_fn(config)
     step = make_train_step(model, tx, criterion, accum, loss_fn)
     state = TrainState(params=params, opt_state=tx.init(params),
                        step=jnp.zeros((), jnp.int32))

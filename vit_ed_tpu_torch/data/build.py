@@ -1,7 +1,8 @@
 """Dataset factory (``vit_ed_tpu/data/build.py``): returns
 ``(dataset, repeat)`` where ``repeat`` multiplies the epoch length.
-``hisfrag20``, ``div2k``, ``michigan`` and ``geshaem`` are ported; the other
-datasets wait for their entries (ROADMAP queue A item 8)."""
+``hisfrag20``, ``div2k``, ``div2k_triplet``, ``michigan`` and ``geshaem``
+are ported; the other datasets wait for their entries (ROADMAP queue A
+item 8)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,14 @@ def build_dataset(mode, config, transforms):
                              with_negative=True, image_size=config.DATA.IMG_SIZE,
                              erosion_ratio=config.DATA.EROSION_RATIO)
         return dataset, 5 if split.is_train() else 10
+    if name == "div2k_triplet":
+        from vit_ed_tpu_torch.data.div2k import Div2kPatchTriplet, Split
+
+        split = Split.from_string(mode)
+        dataset = Div2kPatchTriplet(config.DATA.DATA_PATH, split, transform=transform,
+                                    with_negative=True, image_size=config.DATA.IMG_SIZE,
+                                    erosion_ratio=config.DATA.EROSION_RATIO)
+        return dataset, 5 if split.is_train() else 10
     if name == "michigan":
         from vit_ed_tpu_torch.data.michigan import MichiganDataset, Split
 
@@ -37,4 +46,4 @@ def build_dataset(mode, config, transforms):
         return dataset, 1
     raise NotImplementedError(
         f"dataset {name!r} is not ported yet (ROADMAP queue A item 8); "
-        f"'hisfrag20', 'div2k', 'michigan' and 'geshaem' are")
+        f"'hisfrag20', 'div2k', 'div2k_triplet', 'michigan' and 'geshaem' are")

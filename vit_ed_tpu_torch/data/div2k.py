@@ -1,8 +1,8 @@
 """DIV2K puzzle-pair generator (``vit_ed_tpu/data/div2k.py``): the dataset
-that synthesises training pairs for the 4-bin spatial-compatibility task.
-The draws from Python's ``random`` come in the JAX package's order, so one
-seed gives the same items in both. ``Div2kPatchTriplet`` waits with the
-``main_vit`` entry (ROADMAP).
+that synthesises training pairs for the 4-bin spatial-compatibility task,
+and ``Div2kPatchTriplet``, its rotated triplets for the ViT baseline. The
+draws from Python's ``random`` come in the JAX package's order, so one
+seed gives the same items in both.
 
 - load a DIV2K image; at train time augment with flips + shift/scale/rotate
   + RGB shift
@@ -137,3 +137,39 @@ class DIV2KPatch:
 
     def __len__(self):
         return len(self.dataset)
+
+
+class Div2kPatchTriplet(DIV2KPatch):
+    """4 directional (anchor, positive, negative) triplets per image made
+    with PIL's 90-degree rotations, for the triplet-ViT baseline. Items are
+    [4, 3, H, W, 3] float32 and the index. The ``random`` draws are
+    ``DIV2KPatch``'s up to the erosion ratio; no label draw follows."""
+
+    def __getitem__(self, index: int):
+        image = self.read_image(index)
+        patch = self._crop_region(image)
+        crops = T.crop(patch, 3, 2)
+        erosion_ratio = self.erosion_ratio
+        if self._split.is_train():
+            erosion_ratio = random.uniform(self.erosion_ratio, self.erosion_ratio * 2)
+        piece = math.ceil(self.image_size * (1 - erosion_ratio))
+
+        def tr(img):
+            # the single-image path of the pair transform
+            out = self.transform(img, img)[0] if self.transform else T.normalize_image(img)
+            return np.asarray(out)
+
+        def cc(i):
+            return T.center_crop(crops[i], piece)
+
+        results = [
+            # right of first
+            np.stack([tr(cc(0)), tr(cc(1).rotate(180)), tr(cc(1))]),
+            # left of first
+            np.stack([tr(cc(5).rotate(180)), tr(cc(4)), tr(cc(1))]),
+            # bottom of first
+            np.stack([tr(cc(1).rotate(90)), tr(cc(4).rotate(270)), tr(cc(3))]),
+            # top of first
+            np.stack([tr(cc(3).rotate(270)), tr(cc(1).rotate(90)), tr(cc(2))]),
+        ]
+        return np.stack(results).astype(np.float32), np.asarray(index, np.int32)

@@ -1,10 +1,10 @@
-"""Puzzle pieces as network input (``vit_ed_tpu/data/pieces.py``, the part
-that puzzle evaluation runs): ``piece_to_rgb_image`` and ``PiecesImages``.
+"""Puzzle pieces as network input (``vit_ed_tpu/data/pieces.py``, the parts
+that puzzle evaluation and the triplet-ViT baseline run):
+``piece_to_rgb_image``, ``PiecesImages`` and ``PiecesDatasetTriplet``.
 
 The LAB -> RGB conversion is ``solver.color.lab2rgb_u8``, equal to OpenCV's
-``COLOR_LAB2RGB`` on every input. ``PiecesDataset`` and
-``PiecesDatasetTriplet`` (the pair datasets of the pajigsaw and ViT
-baselines) are not ported yet (ROADMAP queue A item 8).
+``COLOR_LAB2RGB`` on every input. ``PiecesDataset`` (the pair dataset of
+the pajigsaw baseline) is not ported yet (ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
@@ -45,3 +45,36 @@ class PiecesImages:
 
     def __len__(self):
         return len(self.pieces)
+
+
+class PiecesDatasetTriplet:
+    """Every ordered pair (i, j), i != j, of ``pieces`` as 4 rotated
+    pairings, for the triplet-ViT baseline's distances: (first, second
+    rotated 180) for "second right of first", then the bottom, left and top
+    pairings by PIL rotations. Items are [8, H, W, 3] float32 (the 4
+    pairings' two images each) and the index into ``entries``."""
+
+    def __init__(self, pieces: List[PuzzlePiece], transform: Optional[Callable] = None):
+        self.pieces = pieces
+        self.transform = transform
+        self.entries = [(i, j) for i in range(len(pieces))
+                        for j in range(len(pieces)) if i != j]
+
+    def __getitem__(self, index: int):
+        i, j = self.entries[index]
+        first_img = piece_to_rgb_image(self.pieces[i])
+        second_img = piece_to_rgb_image(self.pieces[j])
+
+        images = []
+        for f, s in [
+            (first_img, second_img.rotate(180)),             # right of first
+            (first_img.rotate(90), second_img.rotate(270)),  # bottom
+            (first_img.rotate(180), second_img),             # left
+            (first_img.rotate(270), second_img.rotate(90)),  # top
+        ]:
+            ft, st = self.transform(f, s)
+            images.append(np.stack([np.asarray(ft), np.asarray(st)], axis=0))
+        return np.concatenate(images, axis=0).astype(np.float32), np.asarray(index, np.int32)
+
+    def __len__(self):
+        return len(self.entries)

@@ -1,15 +1,21 @@
 """Model factory keyed on MODEL.TYPE (``vit_ed_tpu/models/build.py``).
 
-Builds the pjs ViT-ED for the scoring and the training path. Other model
-types and the options not ported yet raise NotImplementedError naming the
-ROADMAP item that ports them.
+Builds the pjs ViT-ED (the pair scorer of every pair path) and the plain
+ViT (the embedding model of the triplet baselines). Other model types and
+the options not ported yet raise NotImplementedError naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
+from vit_ed_tpu_torch.models.vit import ViT
 from vit_ed_tpu_torch.models.vit_ed import ViTED
+
+BUILT_TYPES = ("pjs", "vit")
 
 
 def compute_dtype(config) -> torch.dtype:
@@ -36,18 +42,36 @@ def _unported(config):
     return [(name, item) for on, name, item in checks if on]
 
 
-def build_model(config, device=None) -> ViTED:
+def build_model(config, device=None) -> Union[ViTED, ViT]:
     """Build the MODEL.TYPE model on ``device`` (float32 parameters; the
     compute dtype follows AMP_ENABLE)."""
-    if config.MODEL.TYPE != "pjs":
+    if config.MODEL.TYPE not in BUILT_TYPES:
         raise NotImplementedError(
             f"MODEL.TYPE {config.MODEL.TYPE!r} is not ported yet "
-            f"(ROADMAP queue A item 8); only 'pjs' is")
+            f"(ROADMAP queue A item 8); {' and '.join(map(repr, BUILT_TYPES))} are")
     unported = _unported(config)
     if unported:
         name, item = unported[0]
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP {item})")
+    if config.MODEL.TYPE == "vit":
+        vit = config.MODEL.VIT
+        model = ViT(
+            img_size=config.DATA.IMG_SIZE,
+            patch_size=vit.PATCH_SIZE,
+            in_chans=vit.IN_CHANS,
+            num_classes=config.MODEL.NUM_CLASSES,
+            embed_dim=vit.EMBED_DIM,
+            depth=vit.DEPTH,
+            num_heads=vit.NUM_HEADS,
+            mlp_ratio=vit.MLP_RATIO,
+            qkv_bias=vit.QKV_BIAS,
+            drop_path_rate=config.MODEL.DROP_PATH_RATE,
+            dtype=compute_dtype(config),
+            use_checkpoint=config.TRAIN.USE_CHECKPOINT,
+            drop_rate=config.MODEL.DROP_RATE,
+        )
+        return model.to(device) if device is not None else model
     pjs = config.MODEL.PJS
     model = ViTED(
         img_size=config.DATA.IMG_SIZE,

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vit_ed_tpu_torch.ops.attention import (
     fused_attention_packed_kv,
@@ -269,3 +270,72 @@ class CrossBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         return self.cross_mlp(self.self_part(x), context)
+
+
+class ViTBase(nn.Module):
+    """What the port's transformers (``ViTED``, ``ViT``) share in training:
+    the compute dtype, the model-owned stochastic-depth generator, block
+    recomputation under ``use_checkpoint`` and the image embedding. The
+    dropouts other than DropPath are 0 in every config of the repo; they
+    are taken as arguments and training with a non-zero one raises
+    (ROADMAP)."""
+
+    def __init__(self, dtype: torch.dtype, use_checkpoint: bool, **dropouts: float):
+        super().__init__()
+        self.dtype = dtype
+        self.use_checkpoint = use_checkpoint
+        self.dropouts = dropouts
+        self.drop_path_generator: Optional[torch.Generator] = None
+
+    def seed_drop_path(self, seed: int) -> torch.Generator:
+        """Create the stochastic-depth generator on the model's device,
+        seed it and hand it to every DropPath; returns it (its state goes
+        into checkpoints)."""
+        gen = torch.Generator(device=self.pos_embed.device)
+        gen.manual_seed(seed)
+        self.drop_path_generator = gen
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = gen
+        return gen
+
+    def _run(self, fn, *args: torch.Tensor) -> torch.Tensor:
+        """``fn(*args)``, recomputed in the backward pass when
+        ``use_checkpoint`` is set and a graph is being recorded. The
+        recomputation rewinds the DropPath generator to where the first
+        run found it (and puts it back after), so both runs draw the same
+        masks."""
+        if not (self.use_checkpoint and self.training
+                and torch.is_grad_enabled()):
+            return fn(*args)
+        gen = self.drop_path_generator
+        before = None if gen is None else gen.get_state()
+        first = [True]
+
+        def run(*a):
+            if first[0] or gen is None:
+                first[0] = False
+                return fn(*a)
+            after = gen.get_state()
+            gen.set_state(before)
+            try:
+                return fn(*a)
+            finally:
+                gen.set_state(after)
+
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def _embed(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 images normalize on the device with the canonical
+        (x/255 - 0.5)/0.5 in float32, before the cast to the compute
+        dtype (as ``_embed`` of the JAX models)."""
+        if self.training and any(self.dropouts.values()):
+            on = sorted(k for k, v in self.dropouts.items() if v)
+            raise NotImplementedError(
+                f"training with non-zero {on} is not ported yet (ROADMAP: "
+                f"what the training slice left out); every config of the repo keeps "
+                f"them at 0")
+        if x.dtype == torch.uint8:
+            x = (x.float() / 255.0 - 0.5) / 0.5
+        return self.patch_embed(x.to(self.dtype))

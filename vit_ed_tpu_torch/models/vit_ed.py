@@ -34,19 +34,18 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from vit_ed_tpu_torch.models.layers import (
     Block,
     CrossBlock,
-    DropPath,
     LayerNorm,
     Linear,
     PatchEmbed,
+    ViTBase,
 )
 
 
-class ViTED(nn.Module):
+class ViTED(ViTBase):
     """Vision Transformer Encoder-Decoder (model type "pjs")."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
@@ -59,7 +58,10 @@ class ViTED(nn.Module):
                  use_checkpoint: bool = False, drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0):
-        super().__init__()
+        super().__init__(dtype, use_checkpoint, drop_rate=drop_rate,
+                         pos_drop_rate=pos_drop_rate,
+                         proj_drop_rate=proj_drop_rate,
+                         attn_drop_rate=attn_drop_rate)
         self.img_size = img_size
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -69,12 +71,6 @@ class ViTED(nn.Module):
         # the last decoder block (the same function; False re-runs the
         # full last block, as the JAX TPU.CLS_SHORTCUT switch does)
         self.cls_shortcut = cls_shortcut
-        self.dtype = dtype
-        self.use_checkpoint = use_checkpoint
-        self.dropouts = {"drop_rate": drop_rate, "pos_drop_rate": pos_drop_rate,
-                         "proj_drop_rate": proj_drop_rate,
-                         "attn_drop_rate": attn_drop_rate}
-        self.drop_path_generator: Optional[torch.Generator] = None
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
         self.cls_token = nn.Parameter(torch.randn(1, 1, embed_dim) * 1e-6)
@@ -96,60 +92,6 @@ class ViTED(nn.Module):
     @property
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
-
-    # ---------------------------------------------------------------- training
-    def seed_drop_path(self, seed: int) -> torch.Generator:
-        """Create the stochastic-depth generator on the model's device,
-        seed it and hand it to every DropPath; returns it (its state goes
-        into checkpoints)."""
-        gen = torch.Generator(device=self.pos_embed.device)
-        gen.manual_seed(seed)
-        self.drop_path_generator = gen
-        for m in self.modules():
-            if isinstance(m, DropPath):
-                m.generator = gen
-        return gen
-
-    def _run(self, fn, *args: torch.Tensor) -> torch.Tensor:
-        """``fn(*args)``, recomputed in the backward pass when
-        ``use_checkpoint`` is set and a graph is being recorded. The
-        recomputation rewinds the DropPath generator to where the first
-        run found it (and puts it back after), so both runs draw the same
-        masks."""
-        if not (self.use_checkpoint and self.training
-                and torch.is_grad_enabled()):
-            return fn(*args)
-        gen = self.drop_path_generator
-        before = None if gen is None else gen.get_state()
-        first = [True]
-
-        def run(*a):
-            if first[0] or gen is None:
-                first[0] = False
-                return fn(*a)
-            after = gen.get_state()
-            gen.set_state(before)
-            try:
-                return fn(*a)
-            finally:
-                gen.set_state(after)
-
-        return checkpoint(run, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-
-    def _embed(self, x: torch.Tensor) -> torch.Tensor:
-        """uint8 images normalize on the device with the canonical
-        (x/255 - 0.5)/0.5 in float32, before the cast to the compute
-        dtype (as ViTED._embed of the JAX package)."""
-        if self.training and any(self.dropouts.values()):
-            on = sorted(k for k, v in self.dropouts.items() if v)
-            raise NotImplementedError(
-                f"training with non-zero {on} is not ported yet (ROADMAP: "
-                f"what the training slice left out); every config of the repo keeps "
-                f"them at 0")
-        if x.dtype == torch.uint8:
-            x = (x.float() / 255.0 - 0.5) / 0.5
-        return self.patch_embed(x.to(self.dtype))
 
     # ---------------------------------------------------------------- stream 1
     def encode(self, x1: torch.Tensor) -> torch.Tensor:

@@ -276,6 +276,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_head_dim(c, num_heads)
     b = q.shape[0]
     n_keys = k.shape[1]
+    if b > _MAX_GRID:
+        raise ValueError(f"batch {b} must be <= {_MAX_GRID} (the grid's z)")
     _check_operands((q, k, v), q, (1, b))
     if any(col % 8 for col in cols) or v.shape[1] != n_keys:
         raise ValueError("column offsets must be multiples of 8 and k/v "

@@ -65,7 +65,11 @@ from vit_ed_tpu_torch.train.optim import (
     set_lr,
 )
 from vit_ed_tpu_torch.utils import AverageMeter, create_logger, set_seed
-from vit_ed_tpu_torch.utils.flops import bf16_peak_tflops, pjs_step_flops
+from vit_ed_tpu_torch.utils.flops import (
+    bf16_peak_tflops,
+    pjs_step_flops,
+    vit_step_flops,
+)
 from vit_ed_tpu_torch.utils.preempt import PreemptionGuard
 from vit_ed_tpu_torch.utils.profiler import maybe_trace
 
@@ -319,19 +323,25 @@ class Trainer:
                              f"{self.step} updates applied)")
 
     def step_model_flops(self, micro_batches: List[Dict[str, np.ndarray]]) -> int:
-        """Model FLOPs (forward + backward, utils/flops.py) of one update:
-        per micro-batch, its images and its live pairs (the mined-pair
-        buffer's ``pair_mask``; padding rows are not counted), or one pair
-        per stacked item."""
+        """Model FLOPs (forward + backward, utils/flops.py) of one update,
+        by MODEL.TYPE. A ViT counts every image of ``samples`` (every axis
+        before [H, W, C]: a triplet item [4, 3, H, W, C] holds 12). A pjs
+        model counts per micro-batch its images and its live pairs (the
+        mined-pair buffer's ``pair_mask``; padding rows are not counted),
+        or one pair per stacked item."""
         total = 0
         for batch in micro_batches:
-            n_images = int(np.shape(batch["samples"])[0])
+            shape = np.shape(batch["samples"])
+            if self.config.MODEL.TYPE == "vit":
+                total += sum(vit_step_flops(self.model, int(np.prod(shape[:-3]))))
+                continue
             n_pairs = (int(np.asarray(batch["pair_mask"]).sum())
-                       if "pair_mask" in batch else n_images)
-            total += sum(pjs_step_flops(self.model, n_images, n_pairs))
+                       if "pair_mask" in batch else int(shape[0]))
+            total += sum(pjs_step_flops(self.model, int(shape[0]), n_pairs))
         return total
 
-    def _log_mfu(self, step_seconds: float, step_flops: float) -> str:
+    def _log_mfu(self, step_seconds: float, step_flops: float,
+                 model_type: str) -> str:
         """The epoch's model-FLOP MFU line: mean model FLOPs per update over
         the median time per update between syncs, against the card's dense
         bf16 peak (or TPU.PEAK_TFLOPS where a config sets it); no
@@ -340,7 +350,7 @@ class Trainer:
                                       self.config.TPU.PEAK_TFLOPS)
         tfs = step_flops / step_seconds / 1e12
         line = (f"Model FLOPs: {step_flops / 1e9:.3f} GF/update (forward + "
-                f"backward, counted from the pjs geometry) / "
+                f"backward, counted from the {model_type} geometry) / "
                 f"{step_seconds * 1e3:.1f} ms per update (median between "
                 f"syncs, host input included) = {tfs:.2f} TF/s; ")
         if peak is None:
@@ -426,7 +436,7 @@ class Trainer:
             f"{datetime.timedelta(seconds=int(epoch_time))}")
         if len(sync_rates) >= 3:   # one or two intervals are noise
             self._log_mfu(float(np.median(sync_rates)),
-                          float(np.mean(step_flops)))
+                          float(np.mean(step_flops)), self.config.MODEL.TYPE)
 
     # ------------------------------------------------------------- throughput
     def throughput_batch(self) -> np.ndarray:

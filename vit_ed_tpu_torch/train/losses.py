@@ -1,6 +1,14 @@
-"""Losses of the training slice (``vit_ed_tpu/train/losses.py:13-36``):
-binary cross-entropy on logits, plain and over a padded pair buffer. The
-triplet and SimSiam losses wait for the entries that use them (ROADMAP).
+"""Losses (``vit_ed_tpu/train/losses.py``): binary cross-entropy on
+logits, plain and over a padded pair buffer, and the cosine-distance
+triplet losses of the ViT embedding baselines. The SimSiam loss waits for
+the entry that uses it (ROADMAP).
+
+The triplet losses copy the JAX formulas op for op, gradients included:
+the norm is clamped at 1e-12 (``F.cosine_similarity`` clamps at 1e-8 and
+elsewhere), the hinge is ``torch.maximum`` (a tie at 0 splits the gradient
+in halves, as ``jnp.maximum`` does) and the batch-hard reductions are
+``amax`` / ``amin`` (tied entries share the gradient evenly, as in JAX;
+``max(dim)`` would hand all of it to one index).
 """
 
 from __future__ import annotations
@@ -32,3 +40,43 @@ def masked_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     if reduction == "sum":
         return total
     return total / mask.sum().clamp(min=1.0)
+
+
+def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1 - cos(a, b) over the last axis (broadcasting), each side divided
+    by its norm clamped at 1e-12."""
+    an = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True).clamp(min=1e-12)
+    bn = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True).clamp(min=1e-12)
+    return 1.0 - (an * bn).sum(dim=-1)
+
+
+def _hinge(x: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def triplet_cosine_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                        negative: torch.Tensor, margin: float = 0.2) -> torch.Tensor:
+    """TripletMarginWithDistanceLoss with the cosine distance, mean over the
+    batch."""
+    d_pos = cosine_distance(anchor, positive)
+    d_neg = cosine_distance(anchor, negative)
+    return _hinge(d_pos - d_neg + margin).mean()
+
+
+def batch_wise_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+                            margin: float = 0.2) -> torch.Tensor:
+    """Batch-hard triplet loss over in-batch label equality: per anchor the
+    farthest positive and the nearest negative; anchors without a positive
+    or without a negative count zero and are left out of the mean."""
+    d = cosine_distance(embeddings[:, None, :], embeddings[None, :, :])
+    same = labels[:, None] == labels[None, :]
+    eye = torch.eye(labels.shape[0], dtype=torch.bool, device=labels.device)
+    pos_mask = same & ~eye
+    neg_mask = ~same
+    inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
+    d_pos = torch.where(pos_mask, d, -inf).amax(dim=1)
+    d_neg = torch.where(neg_mask, d, inf).amin(dim=1)
+    valid = pos_mask.any(dim=1) & neg_mask.any(dim=1)
+    loss = _hinge(d_pos - d_neg + margin)
+    return (torch.where(valid, loss, torch.zeros_like(loss)).sum()
+            / valid.sum().clamp(min=1))

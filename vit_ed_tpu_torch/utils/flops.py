@@ -1,14 +1,16 @@
-"""Model FLOPs of a pjs (ViT-ED) train step, counted from the geometry, and
-the card's peak for the trainer's MFU line.
+"""Model FLOPs of a train step, counted from the model's geometry (the pjs
+ViT-ED's pairs or the plain ViT's images), and the card's peak for the
+trainer's MFU line.
 
 The attention kernels are ctypes launches that ``torch.utils.flop_counter``
 does not see, so the count is analytic. It counts the matrix products the
 model's function needs, two FLOPs per multiply-add:
 
-- the patch embedding of every image twice (the encoder's stream and the
-  decoder's ``prepare_x2`` stream);
-- every Linear (qkv, proj, the cross-attention's q and kv, fc1, fc2, head);
-- Q K^T and P V of every attention, at the rows it computes (the last
+- the patch embedding of every image (twice in the pjs model: the
+  encoder's stream and the decoder's ``prepare_x2`` stream);
+- every Linear (qkv, proj, the cross-attention's q and kv, fc1, fc2, head
+  on the CLS row);
+- Q K^T and P V of every attention, at the rows it computes (the last pjs
   decoder block computes the CLS row only under the CLS short-circuit, but
   projects qkv over every row);
 - the backward as twice the forward: the gradient of each product's two
@@ -64,6 +66,23 @@ def pjs_step_flops(model, n_images: int, n_pairs: int) -> Tuple[int, int]:
     forward = (n_images * (2 * embed + len(model.blocks) * enc)
                + n_pairs * per_pair)
     backward = 2 * forward - n_images * 2 * embed
+    return forward, backward
+
+
+def vit_step_flops(model, n_images: int) -> Tuple[int, int]:
+    """(forward, backward) model FLOPs of one step of ``model`` (a ViT) that
+    embeds ``n_images`` images: the patch embedding, ``depth`` blocks over
+    the CLS and patch tokens, and the head on the CLS row."""
+    c = model.embed_dim
+    p = model.patch_size
+    s = model.num_patches + 1        # CLS + patch tokens
+    hid = model.blocks[0].mlp.fc1.weight.shape[0]
+    k = model.head.weight.shape[0]
+    in_chans = model.patch_embed.proj.weight.shape[1]
+    embed = 2 * (s - 1) * in_chans * p * p * c
+    block = s * c * (8 * c + 4 * hid) + 4 * s * s * c
+    forward = n_images * (embed + len(model.blocks) * block + 2 * c * k)
+    backward = 2 * forward - n_images * embed
     return forward, backward
 
 
