@@ -136,6 +136,37 @@ nothing from the JAX package. Phases, each printing its own lines:
     direct forwards, 1e-2) and ``throughput``; every run with launch counts
     of its own, reset before and read after.
 
+18. the Pajigsaw entry, lr_finder, solver_driver and the BatchNorm
+    baselines: (a) the pair kernels at the Pajigsaw shapes (C = 384, H = 6:
+    the training batch of 64 stacked pairs at S = 1025 and the encoder's
+    1024, with dq / dkv; score_dense's chunk of 12 at kv_shared, qkv and
+    qkv_cls) against plain as in phases 2 and 6, then timed with plain,
+    SDPA and the bound; (b) ``python -m vit_ed_tpu_torch.pajigsaw --mode
+    train`` at pjs-S patch16_512 (configs/pajigsaw/pajigsaw_patch16_512.yaml)
+    on a synthetic manifest from a seed (54 train images, 2 val, 2 test,
+    each a 3 x 4 grid of 512 px JPEG fragments): 10 updates of 64 pairs and
+    two validates that solve every val puzzle, the step with the loader, the
+    device-only step, launches by shape, peak memory and the MFU line;
+    score_dense against direct pair forwards (1e-2); then ``--mode eval``,
+    ``test`` (the reconstructions decode) and ``throughput``, each with
+    launch counts of its own; (c) the BatchNorm baselines at 512 px from
+    seed 0 (resnet on resnet34; mixconv on resnet18 with 4 MetaFormer
+    blocks of 512; ss, ss2, ss2ce on resnet34 with 2048 / 512): forwards in
+    train mode (batch 16 for the SimSiam types, 4 for the others) and eval
+    mode (batch 4), f32 card against f32 CPU (1e-3), bf16 against f32 in
+    eval mode (5e-2; train mode's reading is printed), the running
+    statistics card against CPU; one ss2 step at batch 16 card against CPU
+    (1e-3: in f32 the loss and every running statistic, in f64 also every
+    gradient; the f32 gradients' readings against the CPU and against f64
+    are printed); ss2
+    training through a trainer on phase 9's train split (>= 10 updates of
+    16), two steps from one state bit for bit; (d) ``python -m
+    vit_ed_tpu_torch.lr_finder`` on phase 13's DIV2K at B = 128, 30
+    iterations, its 4-D launches added to phase 13's rows; (e) ``python -m
+    vit_ed_tpu_torch.solver_driver`` on two synthetic JPEGs; (f)
+    ``TPU.FAST_GELU`` f32 card against CPU (1e-3) and ``MODEL.DROP_RATE``
+    0.1 reproducible from one generator seed and absent in eval.
+
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
 
@@ -2038,9 +2069,116 @@ M_PAIR_SHAPES = {("qkv", M_SK, M_SK), ("qkv", M_S, M_S), ("qkv_cls", 1, M_S),
                  ("kv", M_S, M_SK)}
 
 
-def by_shape(shapes, name, n_q, n_k):
-    """Launches of counter ``name`` at (Sq, Sk), every batch size."""
-    return sum(v for k, v in shapes.items() if k[0] == name and k[3:5] == (n_q, n_k))
+def parts_reading(g, r, c):
+    """(max |g - r|, the largest of max |g - r| / max |r| over the [..., C]
+    parts of a gradient: dq, dk and dv of a fused [q | k | v] or [k | v]
+    gradient each against its own max, so that a zeroed dk or dv cannot
+    hide behind dq's)."""
+    e = (g.float() - r.float()).abs()
+    worst = max((e[..., i * c:(i + 1) * c].max()
+                 / r[..., i * c:(i + 1) * c].float().abs().max().clamp(min=1e-30)).item()
+                for i in range(g.shape[-1] // c))
+    return e.max().item(), worst
+
+
+def hold_pair_kernels(gen, sets, label):
+    """Every pair kernel of ``sets`` ((tag, layouts forward, layouts
+    backward, B, S, Sk) each) against plain, in f32 and bf16: the forward as
+    phase 2 holds it (dominant last key, NaN-filled output), dq, dk and dv
+    each against its own max (``parts_reading``) and bit-equal twice;
+    returns the largest |kernel - plain| by (tag, layout) and (tag,
+    layout_bwd)."""
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, fwd, bwd, b, s, sk in sets:
+            cs = cases(gen, dtype, b, s, sk, probe=True)
+            outs = {}
+            for name in fwd:
+                kern, plain, _lib, _inp = cs[name]
+                ref = plain()
+                out = kern(poison(ref))
+                torch.cuda.synchronize()
+                e, rel = forward_reading(out, ref)
+                ok = rel <= TOL[dtype]
+                print(f"  {label} {name:14s} {str(dtype)[6:]:8s} B={b} S={s} Sk={sk} "
+                      f"/max|plain|={rel:.3e} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"{name} {dtype} B={b} S={s}: kernel != plain")
+                key = (tag, name.replace("kv_shared_cls", "kv_shared"))
+                err[key] = max(err.get(key, 0.0), e)
+                outs[name] = out
+            if "kv_shared" in outs:
+                inp = cs["kv_shared"][3]
+                bcast = A.fused_attention_packed_kv(
+                    inp["q"], inp["kv1"].expand(b, -1, -1).contiguous(), H)
+                torch.cuda.synchronize()
+                if not (torch.equal(outs["kv_shared"], bcast)
+                        and torch.equal(outs["qkv_cls"], outs["qkv"][:, :1])):
+                    raise AssertionError("kv_shared != broadcast kv or cls != row 0")
+            del cs, outs
+            if not bwd:
+                continue
+            t = vjp_inputs(gen, dtype, b, s, sk)
+            for name in bwd:
+                args, out, do = vjp_graph(name, t)
+                got = torch.autograd.grad(out, args, do, retain_graph=True)
+                again = torch.autograd.grad(out, args, do)
+                ref = plain_grads(name, t, do)
+                torch.cuda.synchronize()
+                worst = 0.0
+                for g, g2, r in zip(got, again, ref):
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"{name}_bwd: two launches differ")
+                    e, rel = parts_reading(g, r, C)
+                    worst = max(worst, rel)
+                    key = (tag, name + "_bwd")
+                    err[key] = max(err.get(key, 0.0), e)
+                ok = worst <= TOL[dtype] and all(bool(torch.isfinite(g).all()) for g in got)
+                print(f"  {label} {name + '_bwd':14s} {str(dtype)[6:]:8s} B={b} S={s} "
+                      f"dq, dk, dv /max|grad| (each its own)={worst:.3e} tol={TOL[dtype]:g} "
+                      f"bit-equal twice {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name}_bwd {dtype} B={b} S={s}: kernel != plain")
+            del t
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_pair_kernels(gen, sets, label):
+    """bf16 times of every kernel of ``sets`` beside plain, SDPA and the
+    bound: {(tag, layout or layout_dq / _dkv): row}."""
+    res = {}
+    for tag, fwd, bwd, b, s, sk in sets:
+        cs = cases(gen, torch.bfloat16, b, s, sk)
+        for name in fwd:
+            if name == "kv_shared_cls":
+                continue
+            kern, plain, lib, _ = cs[name]
+            kv_len = s if name in ("qkv", "qkv_cls") else sk
+            r = {"ms": timed(kern), "plain_ms": timed(plain, inner=1), "library_ms": timed(lib)}
+            r["bound_ms"], r["bound_by"] = bound(name, b, s, kv_len)
+            res[(tag, name)] = r
+            print(f"  {label} {name:10s} B={b:<3d} S={s} kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)", flush=True)
+        del cs
+        if bwd:
+            t = vjp_inputs(gen, torch.bfloat16, b, s, sk)
+            for name in bwd:
+                rows = backward_rows(name, t, b, s, sk, f"{label} B={b} S={s}")
+                res.update({(tag, k): v for k, v in rows.items()})
+            del t
+    torch.cuda.empty_cache()
+    return res
+
+
+def by_shape(shapes, name, n_q, n_k, b=None):
+    """Launches of counter ``name`` at (Sq, Sk), at batch ``b`` or every
+    batch size."""
+    return sum(v for k, v in shapes.items() if k[0] == name and k[3:5] == (n_q, n_k)
+               and b in (None, k[1]))
 
 
 def write_michigan(root, papyri, per=4, seed=0):
@@ -2085,106 +2223,12 @@ def write_geshaem(root, groups=5, per=2, seed=0):
     return n
 
 
-def phase_michigan_kernels(gen):
-    """Phase 16a: every pair kernel of the Michigan paths against plain at
-    C = 384, H = 6, S = 577 (Sk = 576 for the cross layouts), B = the
-    training pair buffer and 64, and the encoder's S = 576 at B = 16."""
-    print(f"== phase 16a: pair kernels against plain at pjs-S patch16_384's length "
-          f"(C=384, H=6, S={M_S}, Sk={M_SK}; B={M_PAIRS} and 64; the last key of every "
-          f"(batch, head) dominant) on {card_line()}", flush=True)
-    err = {name: 0.0 for name in M_FWD + tuple(f"{n}_bwd" for n in M_BWD)}
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, sk, names in ((M_PAIRS, M_S, M_SK, M_FWD + ("kv_shared_cls",)),
-                                (64, M_S, M_SK, M_FWD + ("kv_shared_cls",)),
-                                (M_BATCH, M_SK, M_SK, ("qkv",))):
-            cs = cases(gen, dtype, b, s, sk, probe=True)
-            outs = {}
-            for name in names:
-                kern, plain, _lib, _inp = cs[name]
-                ref = plain()
-                out = kern(poison(ref))
-                torch.cuda.synchronize()
-                e, rel = forward_reading(out, ref)
-                ok = rel <= TOL[dtype]
-                print(f"  {name:14s} {str(dtype)[6:]:8s} B={b} S={s} max|kernel-plain|="
-                      f"{e:.3e}, /max|plain|={rel:.3e} tol={TOL[dtype]:g} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    raise AssertionError(f"{name} {dtype} B={b} S={s}: kernel != plain")
-                key = "kv_shared" if name == "kv_shared_cls" else name
-                err[key] = max(err[key], e)
-                outs[name] = out
-            if "kv_shared" in outs:
-                inp = cs["kv_shared"][3]
-                bcast = A.fused_attention_packed_kv(
-                    inp["q"], inp["kv1"].expand(b, -1, -1).contiguous(), H)
-                torch.cuda.synchronize()
-                if not (torch.equal(outs["kv_shared"], bcast)
-                        and torch.equal(outs["qkv_cls"], outs["qkv"][:, :1])):
-                    raise AssertionError("kv_shared != broadcast kv or cls != row 0")
-                print(f"  {str(dtype)[6:]} B={b}: kv_shared == broadcast kv and cls == "
-                      f"full row 0, bit for bit", flush=True)
-            del cs, outs
-        for b, s, sk, names in ((M_PAIRS, M_S, M_SK, M_BWD), (M_BATCH, M_SK, M_SK, ("qkv",))):
-            t = vjp_inputs(gen, dtype, b, s, sk)
-            for name in names:
-                args, out, do = vjp_graph(name, t)
-                got = torch.autograd.grad(out, args, do, retain_graph=True)
-                again = torch.autograd.grad(out, args, do)
-                ref = plain_grads(name, t, do)
-                torch.cuda.synchronize()
-                worst = 0.0
-                for g, g2, r in zip(got, again, ref):
-                    if not torch.equal(g, g2):
-                        raise AssertionError(f"{name}_bwd: two launches differ")
-                    e = (g.float() - r.float()).abs().max().item()
-                    worst = max(worst, e / r.float().abs().max().item())
-                    err[name + "_bwd"] = max(err[name + "_bwd"], e)
-                ok = worst <= TOL[dtype] and all(torch.isfinite(g).all() for g in got)
-                print(f"  {name + '_bwd':14s} {str(dtype)[6:]:8s} B={b} S={s} "
-                      f"max|kernel-plain|/max|grad|={worst:.3e} tol={TOL[dtype]:g} "
-                      f"bit-equal twice {'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    raise AssertionError(f"{name}_bwd {dtype} B={b} S={s}: kernel != plain")
-            del t
-    torch.cuda.empty_cache()
-    return err
-
-
-def phase_michigan_times(gen):
-    """Phase 16b: the pair kernels' times at S = 577 (bf16) beside plain,
-    SDPA and the card's bound."""
-    print(f"== phase 16b: pair kernel times at S={M_S} (bf16; forwards at B={M_PAIRS}, "
-          f"the training pair buffer, and 64; the encoder's S={M_SK} at B={M_BATCH}; "
-          f"backwards at B={M_PAIRS}) on {card_line()}", flush=True)
-    res = {}
-    for b, s, names, tag in ((M_PAIRS, M_S, ("qkv", "kv", "qkv_cls", "kv_shared"), "train"),
-                             (64, M_S, ("qkv", "kv", "qkv_cls", "kv_shared"), "b64"),
-                             (M_BATCH, M_SK, ("qkv",), "encoder")):
-        cs = cases(gen, torch.bfloat16, b, s, M_SK)
-        for name in names:
-            kern, plain, lib, _ = cs[name]
-            kv_len = s if name in ("qkv", "qkv_cls") else M_SK
-            r = {"ms": timed(kern), "plain_ms": timed(plain, inner=1),
-                 "library_ms": timed(lib)}
-            r["bound_ms"], r["bound_by"] = bound(name, b, s, kv_len)
-            res[f"{name}@{tag}"] = r
-            print(f"  {name:10s} B={b:<3d} S={s} kernel {r['ms']:.4f} ms  plain "
-                  f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)", flush=True)
-        del cs
-    t = vjp_inputs(gen, torch.bfloat16, M_PAIRS, M_S, M_SK)
-    for name in M_BWD:
-        rows = backward_rows(name, t, M_PAIRS, M_S, M_SK, f"B={M_PAIRS} S={M_S}")
-        res.update({f"{k}@train": v for k, v in rows.items()})
-    te = vjp_inputs(gen, torch.bfloat16, M_BATCH, M_SK, M_SK)
-    rows = backward_rows("qkv", te, M_BATCH, M_SK, M_SK, f"the encoder, B={M_BATCH} "
-                         f"S={M_SK}")
-    res.update({f"{k}@encoder": v for k, v in rows.items()})
-    del t, te
-    torch.cuda.empty_cache()
-    return res
+# the pair kernels of the Michigan paths, held against plain and timed:
+# (tag, layouts forward, layouts backward, B, S, Sk): the training pair
+# buffer at S = 577, B = 64 (the scan's chunk), the encoder's S = 576
+M_KERNEL_SETS = (("train", M_FWD + ("kv_shared_cls",), M_BWD, M_PAIRS, M_S, M_SK),
+                 ("b64", M_FWD + ("kv_shared_cls",), (), 64, M_S, M_SK),
+                 ("encoder", ("qkv",), ("qkv",), M_BATCH, M_SK, M_SK))
 
 
 def michigan_argv(data, out, tag, mode, *extra):
@@ -2510,8 +2554,15 @@ def phase_michigan(tmp, gen):
     print(f"== phase 16: Michigan / Geshaem (configs/michigan/michigan_patch16_384.yaml): "
           f"synthetic trees of {n_train} and {n_eval} Michigan JPEGs (~700 x 900 px) and "
           f"{n_gesh} Geshaem JPEGs (~500 x 600 px) in {time.time() - t0:.1f}s", flush=True)
-    err = phase_michigan_kernels(gen)
-    times = phase_michigan_times(gen)
+    print(f"== phase 16a: pair kernels against plain at pjs-S patch16_384's length "
+          f"(C=384, H=6, S={M_S}, Sk={M_SK}; B={M_PAIRS} and 64; the encoder's S={M_SK} "
+          f"at B={M_BATCH}) on {card_line()}", flush=True)
+    err = {}
+    for (_tag, name), e in hold_pair_kernels(gen, M_KERNEL_SETS, "16a").items():
+        err[name] = max(err.get(name, 0.0), e)
+    print(f"== phase 16b: pair kernel times at S={M_S} (bf16) on {card_line()}", flush=True)
+    times = {f"{name}@{tag}": r for (tag, name), r in
+             time_pair_kernels(gen, M_KERNEL_SETS, "16b").items()}
     train_shapes, n_steps = phase_michigan_train(tmp, train_data)
     phase_michigan_preempt(tmp, train_data, n_steps)
     scan_shapes = phase_michigan_eval(tmp, eval_data)
@@ -2576,17 +2627,6 @@ def hfv_argv(data, out, tag, mode, *extra, opts=()):
     return ["--cfg", FLAGSHIP_CFG, "--data-path", data, "--mode", mode, "--output", out,
             "--tag", tag, "--batch-size", str(HFV_BATCH), *extra,
             "--opts", *HFV_OPTS, *opts]
-
-
-def parts_reading(g, r, c):
-    """(max |g - r|, the largest of max |g - r| / max |r| over the three
-    [..., C] parts of a fused [q | k | v] gradient): each part against its
-    own max."""
-    e = (g.float() - r.float()).abs()
-    worst = max((e[..., i * c:(i + 1) * c].max()
-                 / r[..., i * c:(i + 1) * c].float().abs().max().clamp(min=1e-30)).item()
-                for i in range(3))
-    return e.max().item(), worst
 
 
 def phase_vit_model(tmp):
@@ -3101,6 +3141,638 @@ def phase_vit(tmp, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the Pajigsaw entry, lr_finder, solver_driver, the BatchNorm models
+# ---------------------------------------------------------------------------
+
+PJS_CFG = os.path.join(ROOT, "configs", "pajigsaw", "pajigsaw_patch16_512.yaml")
+PJS_BATCH = 64               # stacked pairs per update
+PJS_ROWS, PJS_COLS = 3, 4    # the fragment grid of every image
+PJS_TRAIN_IMAGES = 54        # 648 anchors: 10 updates of 64 pairs
+PJS_CHUNK = PJS_ROWS * PJS_COLS   # score_dense's chunk: a row's 11 pairs padded to 12
+# launches of one Pajigsaw update by (counter, B, H, Sq, Sk, d): the encoder's
+# 12 self-attentions at S = 1024 (no CLS), the decoder's 11 at 1025 and its
+# last block's CLS row, 11 per-pair cross-attentions and the last block's
+# CLS-row one, each one forward, one dq and one dkv
+PJS_STEP_SHAPES = {(f"{name}{kind}", PJS_BATCH, H, n_q, n_k, D): n
+                   for name, n_q, n_k, n in (("qkv", 1024, 1024, 12), ("qkv", 1025, 1025, 11),
+                                             ("qkv_cls", 1, 1025, 1), ("kv", 1025, 1024, 11),
+                                             ("kv", 1, 1024, 1))
+                   for kind in ("", "_dq", "_dkv")}
+# the kernels of the train path (B = PJS_BATCH) and of score_dense (B =
+# PJS_CHUNK), each held against plain and timed at that shape:
+# (tag, layouts forward, layouts backward, B, S, Sk)
+PJS_KERNEL_SETS = (("train", ("qkv", "qkv_cls", "kv"), ("qkv", "qkv_cls", "kv"),
+                    PJS_BATCH, 1025, 1024),
+                   ("encoder", ("qkv",), ("qkv",), PJS_BATCH, 1024, 1024),
+                   ("dense", ("kv_shared", "kv_shared_cls", "qkv", "qkv_cls"), (),
+                    PJS_CHUNK, 1025, 1024),
+                   ("dense_encoder", ("qkv",), (), PJS_CHUNK, 1024, 1024))
+# the BatchNorm baselines at 512 px: MODEL.TYPE -> --opts
+BN_MODELS = {
+    "resnet": ("MODEL.RES.ARCH", "resnet34"),
+    "mixconv": ("MODEL.MIXCONV.ARCH", "resnet18", "MODEL.MIXCONV.MIX_DEPTH", "4",
+                "MODEL.MIXCONV.OUT_CHANNELS", "512"),
+    "ss": ("MODEL.SS.ARCH", "resnet34", "MODEL.SS.EMBED_DIM", "2048",
+           "MODEL.SS.PRED_DIM", "512"),
+    "ss2": ("MODEL.SS.ARCH", "resnet34", "MODEL.SS.EMBED_DIM", "2048",
+            "MODEL.SS.PRED_DIM", "512"),
+    "ss2ce": ("MODEL.SS.ARCH", "resnet34", "MODEL.SS.EMBED_DIM", "2048",
+              "MODEL.SS.PRED_DIM", "512", "MODEL.SS.N_CLASSES", "20"),
+}
+SS_BATCH = 16
+
+
+def write_pajigsaw(root, split, images, seed, size=512):
+    """``images`` synthetic images cut into a PJS_ROWS x PJS_COLS grid of
+    ``size`` px JPEG fragments, and ``<root>/<split>.json``."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    manifest = {}
+    for im in range(images):
+        name = f"{split}{im:03d}"
+        small = rng.integers(0, 256, (PJS_ROWS * 2, PJS_COLS * 2, 3), dtype=np.uint8)
+        big = np.asarray(Image.fromarray(small).resize(
+            (PJS_COLS * size, PJS_ROWS * size), Image.BICUBIC)).astype(np.int16)
+        big = np.clip(big + rng.integers(-24, 24, big.shape), 0, 255).astype(np.uint8)
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        fragments = []
+        for r in range(PJS_ROWS):
+            for c in range(PJS_COLS):
+                rel = f"{name}/{r}_{c}.jpg"
+                Image.fromarray(big[r * size:(r + 1) * size, c * size:(c + 1) * size]).save(
+                    os.path.join(root, rel), quality=90)
+                fragments.append({"im_path": rel, "row": r, "col": c, "degree": 0,
+                                  "white_percentage": 0.0})
+        manifest[name] = {"Fragment1v1Rotate90": fragments}
+    with open(os.path.join(root, f"{split}.json"), "w") as f:
+        json.dump(manifest, f)
+    return images * PJS_ROWS * PJS_COLS
+
+
+def pajigsaw_argv(data, out, tag, mode, *extra):
+    return ["--cfg", PJS_CFG, "--data-path", data, "--mode", mode, "--output", out,
+            "--tag", tag, "--batch-size", str(PJS_BATCH), *extra]
+
+
+def phase_pajigsaw_entry(tmp, data):
+    """Phase 18b: ``python -m vit_ed_tpu_torch.pajigsaw --mode train`` at
+    full width (10 updates of 64 stacked pairs, a validate before and after
+    solving every val puzzle), then ``eval``, ``test`` and ``throughput``,
+    each with launch counts of its own; score_dense against direct
+    forwards."""
+    from PIL import Image
+
+    from vit_ed_tpu_torch import pajigsaw
+    from vit_ed_tpu_torch.data.pajigsaw import PajigsawPieces, Split
+    from vit_ed_tpu_torch.data.pieces import PiecesImages
+    from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+
+    card = card_line()
+    print(f"== phase 18b: python -m vit_ed_tpu_torch.pajigsaw --mode train (pjs-S "
+          f"patch16_512, bf16, drop path 0.1, {PJS_BATCH} stacked pairs per update, "
+          f"{PJS_TRAIN_IMAGES} images x {PJS_CHUNK} fragments of 512 px)", flush=True)
+    out = os.path.join(tmp, "out")
+    steps = []
+    inner = pajigsaw.PajigsawTrainer.train_step
+
+    def recorded(self, micro_batches):
+        before = dict(A.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item(),
+                      "shapes": {k: n - before.get(k, 0) for k, n in
+                                 A.launches_by_shape.items() if n > before.get(k, 0)}})
+        return loss, norm
+
+    opts = ("--opts", "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "2")
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    pajigsaw.PajigsawTrainer.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = pajigsaw.main(pajigsaw_argv(data, out, "pjs_train", "train", *opts))
+    finally:
+        pajigsaw.PajigsawTrainer.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    train_shapes = dict(A.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log = open(os.path.join(trainer.config.OUTPUT, "log_rank0train.txt")).read()
+    mfu = [line.split("INFO ", 1)[-1].strip() for line in log.splitlines()
+           if "Model FLOPs" in line]
+    ms = [s["ms"] for s in steps[1:]]
+    print(f"  {card}: {len(steps)} optimizer steps of {PJS_BATCH} pairs; step "
+          f"{np.median(ms):.1f} ms median ({min(ms):.1f}-{max(ms):.1f}, first "
+          f"{steps[0]['ms']:.1f}) with the loader; {PJS_BATCH * len(ms) / (sum(ms) / 1e3):.1f} "
+          f"trained pairs/s; {wall:.1f}s with model build and two validates; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    print(f"  loss {[round(s['loss'], 4) for s in steps]}")
+    print(f"  {card}: MFU line as logged: {mfu}")
+    print(f"  validates: {[m.split('INFO ', 1)[-1] for m in log.splitlines() if 'Average_Results' in m]}")
+    print(f"  launches per step by shape (counter, B, Sq, Sk, launches) "
+          f"{sorted((k[0], k[1], k[3], k[4], n) for k, n in steps[-1]['shapes'].items())}",
+          flush=True)
+    if len(steps) != 10 or trainer.step != 10:
+        raise AssertionError(f"expected 10 optimizer steps, ran {len(steps)}")
+    for s in steps:
+        if not (np.isfinite(s["loss"]) and s["loss"] > 0):
+            raise AssertionError(f"loss not finite and positive: {s['loss']}")
+        if s["shapes"] != PJS_STEP_SHAPES:
+            raise AssertionError(f"unexpected launches in a step: {s['shapes']}")
+    if not mfu or "pjs geometry" not in mfu[0] or "989.4 TF/s" not in mfu[0]:
+        raise AssertionError(f"no MFU line of the pjs count against the card's peak: {mfu}")
+    if log.count("Average_Results") != 2:
+        raise AssertionError("--mode train did not validate twice")
+    breakdown = step_breakdown(trainer)
+    print(f"  {card}: device-only step "
+          f"{sum(breakdown[k] for k in ('forward_ms', 'backward_ms', 'update_ms')):.1f} ms by "
+          f"CUDA events; the profiler's device busy share "
+          f"{100 * breakdown['device_ms'] / max(breakdown['wall_ms'], 1e-9):.1f}% of its wall",
+          flush=True)
+
+    # score_dense on a val puzzle against direct forwards of its 132 pairs
+    model = trainer.model.eval()
+    pieces, _name, _grid = PajigsawPieces(data, Split.VAL)[0]
+    imgs = PiecesImages(pieces, transform=TwoImgSyncEval(
+        trainer.config.DATA.IMG_SIZE)).all_images()
+    n = len(imgs)
+    logits = PairwiseScorer(model, num_outputs=4, pair_chunk=PJS_BATCH).score_dense(
+        imgs, batch_size=PJS_BATCH)
+    pi, pj = np.nonzero(~np.eye(n, dtype=bool))
+    x = torch.from_numpy(np.stack([np.stack([imgs[i], imgs[j]]) for i, j in zip(pi, pj)]))
+    with torch.inference_mode():
+        direct = torch.cat([model(x[lo:lo + PJS_BATCH].cuda()).float().cpu()
+                            for lo in range(0, len(x), PJS_BATCH)]).numpy()
+    gap = float(np.abs(direct - logits[pi, pj]).max())
+    print(f"  score_dense of a {n}-piece val puzzle against {len(pi)} direct pair forwards: "
+          f"max gap {gap:.3e} (tol 1e-2; |logits| up to {np.abs(direct).max():.3f})",
+          flush=True)
+    if not (gap <= 1e-2 and np.isfinite(logits).all()):
+        raise AssertionError("score_dense disagrees with direct forwards")
+    seconds = trainer.puzzle_seconds
+    ckpt_path = os.path.join(trainer.config.OUTPUT, "checkpoint.ckpt")
+    del trainer, model, x
+    torch.cuda.empty_cache()
+
+    results, shapes = {}, {}
+    for mode in ("eval", "test", "throughput"):
+        A.reset_launch_counts()
+        t0 = time.time()
+        results[mode] = pajigsaw.main(pajigsaw_argv(data, out, "pjs_eval", mode,
+                                                    "--pretrained", ckpt_path, *opts))
+        torch.cuda.synchronize()
+        shapes[mode] = dict(A.launches_by_shape)
+        print(f"  --mode {mode}: {time.time() - t0:.1f}s, launches {nonzero(A.launches)}",
+              flush=True)
+        if A.launches["qkv"] <= 0:
+            raise AssertionError(f"--mode {mode} never launched the pair qkv kernel")
+    acc, puzzles, names = results["test"]
+    rec_dir = os.path.join(out, "pajigsaw_patch16_512", "pjs_eval", "reconstructed")
+    sizes = []
+    for name in names:
+        with Image.open(os.path.join(rec_dir, f"{name}.jpg")) as im:
+            im.load()
+            sizes.append(im.size)
+    per = {k: np.mean([s[k] for s in seconds]) * 1e3 for k in seconds[0]}
+    print(f"  {card}: val 1 - neighbour {results['eval']:.4f}; test neighbour {acc:.4f} "
+          f"over {len(names)} puzzles, reconstructions {sizes}; throughput "
+          f"{results['throughput']:.1f} pairs/s; ms per {n}-piece puzzle by stage "
+          + ", ".join(f"{k} {v:.1f}" for k, v in per.items()), flush=True)
+    if not (0.0 <= results["eval"] <= 1.0 and 0.0 <= acc <= 1.0
+            and results["throughput"] > 0 and len(sizes) == 2):
+        raise AssertionError("pajigsaw's eval / test / throughput results are off")
+    if by_shape(shapes["eval"], "kv_shared", 1025, 1024, PJS_CHUNK) <= 0:
+        raise AssertionError("--mode eval never launched kv_shared at the validation's chunk")
+    return train_shapes, shapes["eval"]
+
+
+def ss2_trainer_cls():
+    """A trainer of single-view SimSiam on hisfrag fragments (the one the
+    JAX package's tests/test_ss_entry.py defines; neither package has an
+    entry for the BatchNorm types)."""
+    from vit_ed_tpu_torch.hisfrag_vit import HisfragVitTrainer
+    from vit_ed_tpu_torch.train.losses import negative_cosine_similarity
+
+    class Trainer(HisfragVitTrainer):
+        def make_loss_fn(self, criterion):
+            def loss_fn(model, batch):
+                p1, z1 = model(batch["samples"])
+                return negative_cosine_similarity(p1.float(), z1.float())
+
+            return loss_fn
+
+        def validate(self):
+            self.model.eval()
+            losses = []
+            with torch.inference_mode():
+                for images, _ in self.get_dataloader("val"):
+                    p1, z1 = self.model(self._to_device({"x": images})["x"])
+                    losses.append(float(negative_cosine_similarity(p1.float(), z1.float())))
+            return float(np.mean(losses))
+
+    return Trainer
+
+
+def bn_argv(model_type, out, tag, data="none", *extra):
+    return ["--cfg", FLAGSHIP_CFG, "--data-path", data, "--output", out, "--tag", tag,
+            *extra, "--opts", "MODEL.TYPE", model_type, *BN_MODELS[model_type]]
+
+
+def close(got, want, tol, what):
+    """max |got - want| over max |want| within ``tol``, else raise."""
+    rel = (got.float() - want.float()).abs().max().item() / max(
+        want.float().abs().max().item(), 1e-30)
+    if not rel <= tol:
+        raise AssertionError(f"{what}: {rel:.3e} of the max, tol {tol:g}")
+    return rel
+
+
+def stats_reading(got, want):
+    """The largest reading over the running statistics ``got`` against
+    ``want`` (state dicts, after one training forward from the init values
+    0 / 1): a variance against its max; a mean against the larger of its
+    max and 0.01 x the batch's std (the momentum's share of a batch mean
+    that is zero up to rounding, as after a bias-free Dense fed by an
+    affine-free BatchNorm, has no scale of its own)."""
+    worst = 0.0
+    for k, v in got.items():
+        if "running_" not in k:
+            continue
+        w = want[k].double()
+        scale = float(w.abs().max())
+        if k.endswith("running_mean"):
+            var = (want[k.replace("mean", "var")].double() - 0.99) / 0.01
+            scale = max(scale, 0.01 * float(var.clamp(min=0).max()) ** 0.5)
+        worst = max(worst, float((v.double().cpu() - w).abs().max()) / scale)
+    return worst
+
+
+def phase_bn_models(tmp):
+    """Phase 18c: the BatchNorm baselines at 512 px from seed 0: forwards
+    card against CPU and bf16 against f32, one ss2 step card against CPU,
+    two steps from one state bit for bit, and ss2 training through a
+    trainer."""
+    import copy
+
+    from vit_ed_tpu_torch.hisfrag_vit import parse_option
+    from vit_ed_tpu_torch.train.losses import negative_cosine_similarity
+
+    card = card_line()
+    print(f"== phase 18c: the BatchNorm baselines at 512 px (resnet34, mixconv on "
+          f"resnet18 with 4 MetaFormer blocks of 512, SimSiam ss / ss2 / ss2ce on "
+          f"resnet34 with 2048 / 512) on {card}", flush=True)
+    out = os.path.join(tmp, "out")
+    for model_type in BN_MODELS:
+        cfg = get_config(parse_option(bn_argv(model_type, out, f"bn_{model_type}_cpu",
+                                              "none", "--disable_amp")))
+        torch.manual_seed(0)
+        cpu = build_model(cfg)
+        card_f32 = copy.deepcopy(cpu).cuda()
+        card_bf16 = build_model(get_config(parse_option(
+            bn_argv(model_type, out, f"bn_{model_type}")))).cuda()
+        card_bf16.load_state_dict(cpu.state_dict())
+        px = cfg.DATA.IMG_SIZE
+        # train mode normalises the SimSiam heads' features by statistics
+        # over the batch: over 4 samples some of the 2048 features have a
+        # spread that float32 does not resolve to 1e-3 of the max (PERF.md,
+        # PR 10), over 16 it does. The SimSiam types run train mode at 16,
+        # everything else at 4.
+        n = SS_BATCH if model_type.startswith("ss") else 4
+        shape = (n, 2, px, px, 3) if model_type == "ss" else (n, px, px, 3)
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+        readings = []
+        for mode in ("train", "eval"):
+            xm = x if mode == "train" else x[:4]
+            with torch.no_grad():
+                ref = cpu.train(mode == "train")(xm)
+                got = card_f32.train(mode == "train")(xm.cuda())
+                half = card_bf16.train(mode == "train")(xm.cuda())
+            if mode == "train":
+                train_stats = copy.deepcopy(card_f32.state_dict())
+                cpu_train_stats = copy.deepcopy(cpu.state_dict())
+            ref, got, half = (o if isinstance(o, tuple) else (o,) for o in (ref, got, half))
+            for i, (r, g, hb) in enumerate(zip(ref, got, half)):
+                f32 = close(g.cpu(), r, 1e-3, f"{model_type} {mode} out {i} card f32")
+                # bf16 against f32 in eval mode only: in train mode the
+                # SimSiam projector's BatchNorms divide by the spread of 4
+                # random-init pooled features (~6% of their mean), which
+                # bf16's rounding of those features does not resolve
+                bf16 = (close(hb.cpu(), g.cpu(), 5e-2, f"{model_type} out {i} bf16")
+                        if mode == "eval" else
+                        (hb.float().cpu() - g.cpu()).abs().max().item()
+                        / g.abs().max().item())
+                readings.append((mode, i, f32, bf16))
+        # the statistics after the train-mode forward from their init values
+        stats = stats_reading(train_stats, cpu_train_stats)
+        if not stats <= 1e-3:
+            raise AssertionError(f"{model_type} running statistics card != CPU: {stats:.3e}")
+        n_bn = sum(k.endswith("running_mean") for k in train_stats)
+        print(f"  {model_type:7s} {sum(p.numel() for p in cpu.parameters()) / 1e6:.2f} M "
+              f"params, {n_bn} BatchNorms; (mode, output, f32 card/CPU, bf16/f32) "
+              + "; ".join(f"{m} {i} {a:.2e} {b:.2e}" for m, i, a, b in readings)
+              + f"; running statistics card/CPU {stats:.2e}", flush=True)
+        del cpu, card_f32, card_bf16
+    torch.cuda.empty_cache()
+
+    # one ss2 step, card against CPU. In float32 the loss and the running
+    # statistics are held; the gradients of this loss at random init are
+    # not float32-stable (many are small differences of large terms through
+    # the BatchNorms: the CPU's own float32 gradients are read against its
+    # float64 below), so they are held in float64, card against CPU, and the
+    # float32 readings are printed beside them
+    cfg = get_config(parse_option(bn_argv("ss2", out, "bn_step", "none", "--disable_amp")))
+    torch.manual_seed(0)
+    cpu = build_model(cfg)
+    px = cfg.DATA.IMG_SIZE
+    x = torch.randn((SS_BATCH, px, px, 3), generator=torch.Generator().manual_seed(2))
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for where in ("cpu", "cuda"):
+            m = copy.deepcopy(cpu).to(where, dtype)
+            for mod in m.modules():
+                if getattr(mod, "dtype", None) == torch.float32:
+                    mod.dtype = dtype
+            p1, z1 = m.train()(x.to(where, dtype))
+            loss = negative_cosine_similarity(p1, z1)
+            loss.backward()
+            cos = torch.nn.functional.cosine_similarity(p1.detach(), z1, dim=1)
+            res[(where, dtype)] = (
+                loss.item(), cos.abs().max().item(),
+                {k: p.grad.cpu().double() for k, p in m.named_parameters()},
+                {k: v.cpu().double() for k, v in m.state_dict().items() if "running_" in k})
+            del m, p1, z1, loss
+    torch.cuda.empty_cache()
+
+    def grad_reading(got, want):
+        worst, where_ = 0.0, ""
+        for k, g in got.items():
+            if k == "projector.fc3.bias":    # zero in exact arithmetic (a BN follows)
+                continue
+            rel = float((g - want[k]).abs().max() / want[k].abs().max().clamp(min=1e-300))
+            if rel > worst:
+                worst, where_ = rel, k
+        return worst, where_
+
+    f32, f64 = torch.float32, torch.float64
+    card32, cpu32 = res[("cuda", f32)], res[("cpu", f32)]
+    card64, cpu64 = res[("cuda", f64)], res[("cpu", f64)]
+    held = {
+        "f32 loss (of the largest |cosine| term)":
+            abs(card32[0] - cpu32[0]) / cpu32[1],
+        "f32 running statistics": stats_reading(card32[3], cpu32[3]),
+        "f64 loss": abs(card64[0] - cpu64[0]) / cpu64[1],
+        "f64 gradients (each its own max)": grad_reading(card64[2], cpu64[2])[0],
+        "f64 running statistics": stats_reading(card64[3], cpu64[3]),
+    }
+    largest = max(float(g.abs().max()) for g in cpu64[2].values())
+    held["f64 projector.fc3.bias gradient (of the largest gradient)"] = max(
+        float(r[2]["projector.fc3.bias"].abs().max()) for r in (card64, cpu64)) / largest
+    read = {"f32 gradients card against CPU": grad_reading(card32[2], cpu32[2]),
+            "f32 gradients card against f64": grad_reading(card32[2], cpu64[2]),
+            "f32 gradients CPU against f64": grad_reading(cpu32[2], cpu64[2])}
+    print(f"  ss2 step at batch {SS_BATCH}, card against CPU: loss f32 {card32[0]:.6f} / "
+          f"{cpu32[0]:.6f}; held (tol 1e-3): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in held.items())
+          + "; read, not held: " + "; ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in read.items()),
+          flush=True)
+    bad = [k for k, v in held.items() if not v <= 1e-3]
+    if bad:
+        raise AssertionError(f"ss2 step card != CPU: {bad}")
+    del cpu, res
+    torch.cuda.empty_cache()
+
+    # ss2 training through the trainer, then two steps from one state
+    data = os.path.join(tmp, "ss2")
+    if not os.path.isdir(data):
+        os.makedirs(data)
+        os.symlink(os.path.join(tmp, "train_data", "train"), os.path.join(data, "train"))
+    trainer_cls = ss2_trainer_cls()
+    steps = []
+    inner = trainer_cls.train_step
+
+    def recorded(self, micro_batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss.item()})
+        return loss, norm
+
+    trainer_cls.train_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    argv = bn_argv("ss2", out, "ss2_train", data, "--batch-size", str(SS_BATCH))
+    argv += ["TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "2"]
+    t0 = time.time()
+    trainer = trainer_cls(parse_option(argv))
+    stats0 = {k: v.clone() for k, v in trainer.model.state_dict().items() if "running_" in k}
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mfu = [line.split("INFO ", 1)[-1].strip() for line in open(os.path.join(
+        trainer.config.OUTPUT, "log_rank0train.txt")) if "Model FLOPs" in line]
+    ms = [s["ms"] for s in steps[1:]]
+    moved = sum(not torch.equal(v, trainer.model.state_dict()[k]) for k, v in stats0.items())
+    print(f"  {card}: ss2 train, {len(steps)} steps of {SS_BATCH} images (bf16); step "
+          f"{np.median(ms):.1f} ms median ({min(ms):.1f}-{max(ms):.1f}, first "
+          f"{steps[0]['ms']:.1f}) with the loader; {wall:.1f}s with build and two validates; "
+          f"peak device memory {peak:.2f} GiB; {moved} of {len(stats0)} running statistics "
+          f"moved", flush=True)
+    print(f"  loss {[round(s['loss'], 4) for s in steps]}")
+    print(f"  {card}: MFU line as logged: {mfu}", flush=True)
+    if len(steps) < 10 or trainer.step != len(steps):
+        raise AssertionError(f"ss2 ran {len(steps)} steps, expected >= 10")
+    if not all(np.isfinite(s["loss"]) for s in steps) or moved != len(stats0):
+        raise AssertionError("ss2 loss not finite or running statistics not updated")
+    if not mfu or "ss2 geometry" not in mfu[0] or "989.4 TF/s" not in mfu[0]:
+        raise AssertionError(f"no MFU line of the ss2 count against the card's peak: {mfu}")
+    breakdown = step_breakdown(trainer)
+    print(f"  {card}: ss2 device-only step "
+          f"{sum(breakdown[k] for k in ('forward_ms', 'backward_ms', 'update_ms')):.1f} ms",
+          flush=True)
+    trainer_cls.train_step = inner
+    samples, targets = next(iter(trainer.get_dataloader("train")))
+    host = trainer.prepare_data(samples, targets)
+    model, opt = trainer.model, trainer.optimizer
+    start = (copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict()), trainer.step)
+
+    def step():
+        model.load_state_dict(start[0])
+        opt.load_state_dict(copy.deepcopy(start[1]))
+        trainer.step = start[2]
+        trainer.train_step([host])
+        torch.cuda.synchronize()
+        got = {k: v.clone() for k, v in model.state_dict().items()}
+        for i, st in opt.state_dict()["state"].items():
+            got.update({f"moment {i} {k}": v.clone() for k, v in st.items()
+                        if torch.is_tensor(v)})
+        return got
+
+    a, b = step(), step()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    print(f"  ss2 two steps from one state: {len(a)} parameter, buffer and moment tensors, "
+          f"{len(a) - len(differ)} equal bit for bit (cudnn.deterministic "
+          f"{torch.backends.cudnn.deterministic})", flush=True)
+    if differ:
+        raise AssertionError(f"an ss2 step is not reproducible: {differ[:8]}")
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+
+
+def phase_lr_finder(tmp):
+    """Phase 18d: ``python -m vit_ed_tpu_torch.lr_finder`` on phase 13's
+    DIV2K at patch8_64, B = 128, 30 iterations, launch counts of its own."""
+    from vit_ed_tpu_torch import lr_finder
+
+    print(f"== phase 18d: python -m vit_ed_tpu_torch.lr_finder (pjs patch8_64, bf16, "
+          f"B={PUZZLE_BATCH}, 30 iterations)", flush=True)
+    A.reset_launch_counts()
+    t0 = time.time()
+    trainer = lr_finder.main(["--cfg", PUZZLE_CFG, "--data-path", os.path.join(tmp, "div2k"),
+                              "--output", os.path.join(tmp, "out"), "--tag", "lrf",
+                              "--batch-size", str(PUZZLE_BATCH), "--numb-iter", "30"])
+    torch.cuda.synchronize()
+    shapes = dict(A.launches_by_shape)
+    log = open(os.path.join(trainer.config.OUTPUT, "log_rank0lr_finder.txt")).read()
+    plot = [m.split("INFO ", 1)[-1] for m in log.splitlines() if "lr_finder_result" in m]
+    print(f"  {card_line()}: {len(trainer.losses)} iterations in {time.time() - t0:.1f}s; "
+          f"smoothed losses {[round(float(v), 4) for v in trainer.losses]}; suggestion "
+          f"{trainer.suggestion:.3e}; plot: {plot or 'written'}; launches {nonzero(A.launches)}",
+          flush=True)
+    if not (len(trainer.losses) >= 4 and np.isfinite(trainer.losses).all()):
+        raise AssertionError("lr_finder's losses are not finite")
+    if A.launches["heads_qkv"] <= 0 or A.launches["heads_qkv_dq"] <= 0:
+        raise AssertionError("lr_finder never launched the 4-D kernels")
+    return shapes
+
+
+def phase_solver_driver(tmp):
+    """Phase 18e: ``python -m vit_ed_tpu_torch.solver_driver`` on two
+    synthetic JPEGs."""
+    import random
+
+    from PIL import Image
+
+    from vit_ed_tpu_torch import solver_driver
+
+    images, out = os.path.join(tmp, "solver_images"), os.path.join(tmp, "solver_out")
+    os.makedirs(images)
+    rng = np.random.default_rng(7)
+    for i, (w, h) in enumerate(((512, 384), (448, 448))):
+        small = rng.integers(0, 256, (6, 7, 3), dtype=np.uint8)
+        Image.fromarray(small).resize((w, h), Image.BICUBIC).save(
+            os.path.join(images, f"{i}.jpg"), quality=95)
+    random.seed(0)
+    t0 = time.time()
+    records = solver_driver.main(["--images", images, "--output", out])
+    print(f"== phase 18e: python -m vit_ed_tpu_torch.solver_driver: {len(records)} images "
+          f"in {time.time() - t0:.2f}s: " + "; ".join(
+              f"{os.path.basename(r['image'])} {len(r['puzzle'].pieces)} pieces "
+              f"{ {k: round(v[0], 4) for k, v in r['result'].items()} } perfect {r['perfect']}"
+              for r in records), flush=True)
+    if len(records) != 2 or sorted(os.listdir(out)) != ["0.jpg", "1.jpg"]:
+        raise AssertionError("solver_driver did not solve and write both images")
+
+
+def phase_options(tmp):
+    """Phase 18f: TPU.FAST_GELU card against CPU, MODEL.DROP_RATE 0.1
+    reproducible from one generator seed and absent in eval."""
+    import copy
+
+    from vit_ed_tpu_torch import main as puzzle_main
+
+    def model_for(*opts, f32=False):
+        cfg = get_config(puzzle_main.parse_option(puzzle_argv(
+            "none", os.path.join(tmp, "out"), "opts", "eval",
+            *(("--disable_amp",) if f32 else ()), "--opts", "TRAIN.AUTO_RESUME", "False",
+            *opts)))
+        torch.manual_seed(0)
+        return build_model(cfg)
+
+    cpu = model_for("TPU.FAST_GELU", "True", f32=True)
+    card_m = copy.deepcopy(cpu).cuda()
+    x = torch.randn((8, 2, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        ref = cpu.eval()(x)
+        got = card_m.eval()(x.cuda()).cpu()
+    fast = close(got, ref, 1e-3, "FAST_GELU card f32")
+    drop = model_for("MODEL.DROP_RATE", "0.1").cuda()
+    plain = model_for().cuda()
+    plain.load_state_dict(drop.state_dict())
+    xs = x.cuda()
+    runs = []
+    for _ in range(2):
+        drop.train().seed_drop_path(5)
+        drop.zero_grad(set_to_none=True)
+        loss = drop(xs).float().square().mean()
+        loss.backward()
+        runs.append((loss.detach().clone(), [p.grad.clone() for p in drop.parameters()]))
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    with torch.no_grad():
+        untouched = torch.equal(drop.eval()(xs), plain.eval()(xs))
+        drop.train().seed_drop_path(5)
+        plain.train().seed_drop_path(5)
+        dropped = not torch.equal(drop(xs), plain(xs))
+    print(f"== phase 18f: TPU.FAST_GELU pjs patch8_64 f32 card against CPU {fast:.3e} of the "
+          f"max (tol 1e-3); MODEL.DROP_RATE 0.1: a train step twice from one generator seed "
+          f"equal bit for bit {same}, eval equal to DROP_RATE 0 {untouched}, training "
+          f"differs from DROP_RATE 0 {dropped}", flush=True)
+    if not (same and untouched and dropped):
+        raise AssertionError("MODEL.DROP_RATE: not reproducible, or eval touched, or no effect")
+
+
+def phase_pajigsaw(tmp, gen):
+    """Phase 18. Returns the kernels' rows and lr_finder's launches."""
+    t0 = time.time()
+    print(f"== phase 18a: pair kernels against plain at the Pajigsaw shapes (C=384, H=6; "
+          f"train B={PJS_BATCH} at S=1025 and the encoder's 1024; score_dense's chunk "
+          f"B={PJS_CHUNK}) on {card_line()}", flush=True)
+    err = hold_pair_kernels(gen, PJS_KERNEL_SETS, "18a")
+    times = time_pair_kernels(gen, PJS_KERNEL_SETS, "18a")
+    data = os.path.join(tmp, "pajigsaw")
+    t1 = time.time()
+    n = write_pajigsaw(data, "train", PJS_TRAIN_IMAGES, seed=0)
+    n += write_pajigsaw(data, "val", 2, seed=1) + write_pajigsaw(data, "test", 2, seed=2)
+    print(f"  wrote {n} fragments of 512 px in {time.time() - t1:.1f}s", flush=True)
+    train_shapes, eval_shapes_run = phase_pajigsaw_entry(tmp, data)
+    phase_bn_models(tmp)
+    lrf_shapes = phase_lr_finder(tmp)
+    phase_solver_driver(tmp)
+    phase_options(tmp)
+    print(f"  phase 18 took {time.time() - t0:.1f}s", flush=True)
+
+    rows = []
+    for tag, name, n_q, n_k, suffix in (("train", "qkv", 1025, 1025, ""),
+                                        ("encoder", "qkv", 1024, 1024, "_encoder"),
+                                        ("train", "qkv_cls", 1, 1025, ""),
+                                        ("train", "kv", 1025, 1024, "")):
+        for kind, source, replaces in (("", SOURCE, REPLACES[name]),
+                                       ("_dq", HEADS_BWD_SOURCE, BWD_REPLACES),
+                                       ("_dkv", HEADS_BWD_SOURCE, BWD_REPLACES)):
+            rows.append({
+                "name": f"pair_attention_{name}{kind}_pajigsaw{suffix}", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": by_shape(train_shapes, f"{name}{kind}", n_q, n_k, PJS_BATCH),
+                "max_abs_err": err[(tag, name + ("_bwd" if kind else ""))],
+                **times[(tag, name + kind)]})
+    for name, n_q, n_k in (("kv_shared", 1025, 1024), ("qkv", 1025, 1025),
+                           ("qkv_cls", 1, 1025)):
+        rows.append({
+            "name": f"pair_attention_{name}_pajigsaw_dense", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES[name],
+            "launches": by_shape(eval_shapes_run, name, n_q, n_k, PJS_CHUNK),
+            "max_abs_err": err[("dense", name)], **times[("dense", name)]})
+    return rows, lrf_shapes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -3139,6 +3811,7 @@ def main():
         eval_shapes_run, eval_times, n_puzzles = phase_puzzle_eval(tmp, puzzle_ckpt, gen)
         michigan_rows = phase_michigan(tmp, gen)
         vit_rows = phase_vit(tmp, gen)
+        pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -3194,6 +3867,10 @@ def main():
     # are rows of their own. The shared-kv forward
     # carries the head_dim 32 scan's launches at Sq=1025 and its time at the
     # scan's own chunk shape.
+    # lr_finder (phase 18d) runs the same layouts at the same shapes: its
+    # launches add to --mode train's
+    for key, n in lrf_shapes.items():
+        puzzle_shapes[key] = puzzle_shapes.get(key, 0) + n
     for name, tag, n_q, n_k in (("qkv", "s65", 65, 65), ("qkv", "s64", 64, 64),
                                 ("qkv_cls", "s65", 1, 65), ("kv", "s65", 65, 64),
                                 ("kv", "cls", 1, 64)):
@@ -3225,6 +3902,8 @@ def main():
     kernels += michigan_rows
     # the ViT baselines' kernels at their own shapes (phase 17)
     kernels += vit_rows
+    # the Pajigsaw entry's pair kernels, training and score_dense (phase 18)
+    kernels += pajigsaw_rows
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its main path")

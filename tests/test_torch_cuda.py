@@ -840,3 +840,111 @@ def test_a_batch_over_the_grid_limit_raises_before_launching(card):
     out = A.fused_attention_packed_qkv(qkv.expand(A._MAX_GRID, -1, -1), VIT_H)
     torch.cuda.synchronize()
     assert out.shape == (A._MAX_GRID, 2, VIT_C) and A.launches["heads_qkv"] == 1
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the BatchNorm models, the tanh GELU, the head dropout, score_dense
+# on the pair route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_bn_model_on_card_equals_cpu_and_steps_reproducibly(card):
+    """A small SimSiam-v2 (resnet18, 64 px, f32): train- and eval-mode
+    outputs and the updated running statistics on the card against the CPU
+    within 1e-3 of each max (a running mean: of the larger of its max and
+    0.01 x its batch's std); then two AdamW steps from one state on the card
+    give the same parameters and buffers bit for bit (cuDNN's deterministic
+    algorithms, set by ``resolve_device``)."""
+    import copy
+
+    from vit_ed_tpu_torch.models.simsiam import SimSiamV2
+    from vit_ed_tpu_torch.train.losses import negative_cosine_similarity
+
+    torch.manual_seed(0)
+    cpu = SimSiamV2("resnet18", 64, 32)
+    dev = copy.deepcopy(cpu).to(card)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 64, 64, 3, generator=gen) * (0.5 + torch.rand(8, 1, 1, 1, generator=gen))
+    for train in (True, False):
+        with torch.no_grad():
+            ref = cpu.train(train)(x)
+            got = dev.train(train)(x.to(card))
+        for r, g in zip(ref, got):
+            assert _reading("bn model", g, r) <= 1e-3
+    # a running mean against the larger of its max and 0.01 x its batch's
+    # std: the momentum's share of a batch mean that is zero up to rounding
+    # (the predictor's BatchNorm after a bias-free Dense fed by the
+    # projector's affine-free one) has no scale of its own
+    want, got = cpu.state_dict(), dev.state_dict()
+    for k, v in want.items():
+        if "running_" not in k:
+            continue
+        scale = v.abs().max().item()
+        if k.endswith("running_mean"):
+            var = (want[k.replace("mean", "var")] - 0.99) / 0.01
+            scale = max(scale, 0.01 * var.clamp(min=0).max().item() ** 0.5)
+        err = (got[k].cpu() - v).abs().max().item()
+        print(f"{k} reading {err / scale:.3e}")
+        assert err <= 1e-3 * scale, k
+    start = copy.deepcopy(dev.state_dict())
+    runs = []
+    for _ in range(2):
+        dev.load_state_dict(start)
+        opt = torch.optim.AdamW(dev.parameters(), lr=1e-3)
+        for _ in range(2):
+            opt.zero_grad(set_to_none=True)
+            p1, z1 = dev.train()(x.to(card))
+            negative_cosine_similarity(p1, z1).backward()
+            opt.step()
+        torch.cuda.synchronize()
+        runs.append({k: v.clone() for k, v in dev.state_dict().items()})
+    assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+
+
+@pytest.mark.cuda
+def test_tanh_gelu_on_card_equals_cpu_on_every_bf16_input(card):
+    """``gelu_tanh`` (TPU.FAST_GELU) on the card against the CPU on all
+    65,536 bf16 bit patterns: ``-s`` prints the count that differ (tanh is
+    computed by each device's own float32 routine, so a rounding boundary
+    may fall differently; held within one bf16 ulp)."""
+    from vit_ed_tpu_torch.ops.gelu import gelu_tanh
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    cpu = gelu_tanh(x)
+    dev = gelu_tanh(x.to(card)).cpu()
+    fin = torch.isfinite(cpu)
+    differ = (cpu.view(torch.int16) != dev.view(torch.int16)) & fin
+    print(f"tanh gelu: {int(differ.sum())} of 65536 bf16 inputs differ, card against CPU")
+    ulps = (cpu.view(torch.int16).int() - dev.view(torch.int16).int()).abs()
+    assert bool((ulps[fin] <= 1).all())
+
+
+@pytest.mark.cuda
+def test_score_dense_on_the_pair_route_equals_direct_forwards(card):
+    """A two-block pjs model with 2 heads of 64 (the pair route) at 64 px:
+    every ordered pair of 6 images scored by ``score_dense`` against direct
+    stacked-pair forwards (bf16, 1e-2 absolute, as chip_smoke.py's phase 15
+    holds them), and the head dropout (MODEL.DROP_RATE) drawing from the
+    model's generator: two training forwards from one seed are equal."""
+    from vit_ed_tpu_torch.models.vit_ed import ViTED
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+
+    torch.manual_seed(0)
+    model = ViTED(img_size=64, patch_size=16, embed_dim=128, num_heads=2, depth=2,
+                  c_depth=2, num_classes=4, dtype=torch.bfloat16, drop_rate=0.3).to(card)
+    imgs = np.random.default_rng(0).normal(size=(6, 64, 64, 3)).astype(np.float32)
+    A.reset_launch_counts()
+    logits = PairwiseScorer(model, num_outputs=4, pair_chunk=16).score_dense(imgs, 16)
+    assert A.launches["kv_shared"] > 0
+    pi, pj = np.nonzero(~np.eye(6, dtype=bool))
+    x = torch.from_numpy(np.stack([np.stack([imgs[i], imgs[j]]) for i, j in zip(pi, pj)]))
+    with torch.inference_mode():
+        direct = model.eval()(x.to(card)).float().cpu().numpy()
+    assert np.abs(direct - logits[pi, pj]).max() <= 1e-2
+    outs = []
+    for _ in range(2):
+        model.train().seed_drop_path(3)
+        with torch.no_grad():
+            outs.append(model(x.to(card)))
+    assert torch.equal(outs[0], outs[1])

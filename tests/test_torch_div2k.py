@@ -123,8 +123,8 @@ def test_build_dataset_repeat_factors(div2k_root):
         assert isinstance(dataset, DIV2KPatch) and dataset.with_negative
         assert dataset.image_size == 64 and dataset.erosion_ratio == 0.07
     config.defrost()
-    config.DATA.DATASET = "pajigsaw"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    config.DATA.DATASET = "imagenet"
+    with pytest.raises(NotImplementedError, match="We haven't supported imagenet"):
         build_dataset("train", config, tf)
 
 

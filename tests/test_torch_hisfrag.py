@@ -144,7 +144,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     imports jax, flax, optax or vit_ed_tpu, nor OpenCV (cv2) or pandas,
     which the card host does not have: the puzzle path reads, converts and
     writes images with solver/color.py, and the Geshaem test builds its
-    matrix with numpy."""
+    matrix with numpy. matplotlib, which the card host lacks too, is
+    imported in one place only: inside lr_finder's plot, which logs that
+    it was skipped where the import fails."""
     files = sorted((ROOT / "vit_ed_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 10
@@ -164,11 +166,27 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # the ViT embedding baselines
     assert {port / "main_vit.py", port / "hisfrag_vit.py", port / "models" / "vit.py",
             port / "train" / "losses.py", port / "data" / "div2k.py"} <= set(files)
+    # the Pajigsaw entry, lr_finder, solver_driver and the BatchNorm models
+    assert {port / "pajigsaw.py", port / "lr_finder.py", port / "solver_driver.py",
+            port / "data" / "pajigsaw.py", port / "models" / "resnet.py",
+            port / "models" / "simsiam.py"} <= set(files)
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_ed_tpu", "cv2",
               "pandas"}
     found = [(str(f.relative_to(ROOT)), name) for f in files
              for name in _imports(f) if name.split(".")[0] in banned]
     assert not found, found
+    # matplotlib (absent on the card host) only inside lr_finder's plot
+    plots = [(str(f.relative_to(ROOT)), node.lineno) for f in files
+             for node in ast.walk(ast.parse(f.read_text()))
+             if isinstance(node, (ast.Import, ast.ImportFrom))
+             and any((a.name if isinstance(node, ast.Import) else node.module or "")
+                     .split(".")[0] == "matplotlib" for a in node.names)]
+    lr_finder = ast.parse((port / "lr_finder.py").read_text())
+    plot_fn = next(n for n in ast.walk(lr_finder)
+                   if isinstance(n, ast.FunctionDef) and n.name == "_plot")
+    assert plots and all(path == "vit_ed_tpu_torch/lr_finder.py"
+                         and plot_fn.lineno <= line <= plot_fn.end_lineno
+                         for path, line in plots), plots
 
 
 def test_entry_point_raises_without_a_card(monkeypatch, corpus):

@@ -325,10 +325,10 @@ def default_config() -> ConfigNode:
 
     # The JAX package's deployment knobs. The port reads CLS_SHORTCUT,
     # DEVICE_NORMALIZE, USE_PALLAS_ATTENTION (must stay True: the port
-    # always runs its kernel on the card), INT8_SCORE, MAX_TRAIN_PAIRS and
-    # PEAK_TFLOPS (the MFU line's peak where set; the JAX default is a
-    # TPU's, the port's 0 reads the card's own); models/build.py
-    # raises for the parallelism, MoE, FAST_GELU and int8 switches, which
+    # always runs its kernel on the card), INT8_SCORE, MAX_TRAIN_PAIRS,
+    # FAST_GELU and PEAK_TFLOPS (the MFU line's peak where set; the JAX
+    # default is a TPU's, the port's 0 reads the card's own); models/build.py
+    # raises for the parallelism, MoE and int8 switches, which
     # are not ported yet (ROADMAP). The rest are kept so that every YAML
     # of configs/ loads.
     c.TPU = ConfigNode()

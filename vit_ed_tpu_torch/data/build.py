@@ -1,8 +1,7 @@
 """Dataset factory (``vit_ed_tpu/data/build.py``): returns
-``(dataset, repeat)`` where ``repeat`` multiplies the epoch length.
-``hisfrag20``, ``div2k``, ``div2k_triplet``, ``michigan`` and ``geshaem``
-are ported; the other datasets wait for their entries (ROADMAP queue A
-item 8)."""
+``(dataset, repeat)`` where ``repeat`` multiplies the epoch length, for
+every dataset of the JAX factory: ``hisfrag20``, ``div2k``,
+``div2k_triplet``, ``pajigsaw``, ``michigan`` and ``geshaem``."""
 
 from __future__ import annotations
 
@@ -32,6 +31,12 @@ def build_dataset(mode, config, transforms):
                                     with_negative=True, image_size=config.DATA.IMG_SIZE,
                                     erosion_ratio=config.DATA.EROSION_RATIO)
         return dataset, 5 if split.is_train() else 10
+    if name == "pajigsaw":
+        from vit_ed_tpu_torch.data.pajigsaw import Pajigsaw, Split
+
+        dataset = Pajigsaw(config.DATA.DATA_PATH, Split.from_string(mode),
+                           transform=transform, image_size=config.DATA.IMG_SIZE)
+        return dataset, 1
     if name == "michigan":
         from vit_ed_tpu_torch.data.michigan import MichiganDataset, Split
 
@@ -44,6 +49,4 @@ def build_dataset(mode, config, transforms):
         dataset = GeshaemPatch(config.DATA.DATA_PATH, Split.from_string(mode),
                                transform=transform)
         return dataset, 1
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported yet (ROADMAP queue A item 8); "
-        f"'hisfrag20', 'div2k', 'div2k_triplet', 'michigan' and 'geshaem' are")
+    raise NotImplementedError(f"We haven't supported {name}")

@@ -1,10 +1,10 @@
-"""Puzzle pieces as network input (``vit_ed_tpu/data/pieces.py``, the parts
-that puzzle evaluation and the triplet-ViT baseline run):
-``piece_to_rgb_image``, ``PiecesImages`` and ``PiecesDatasetTriplet``.
+"""Puzzle pieces as network input (``vit_ed_tpu/data/pieces.py``):
+``piece_to_rgb_image``, ``PiecesDataset`` (every ordered pair as a stacked
+pair image), ``PiecesImages`` (one image per piece, for the dense scorer)
+and ``PiecesDatasetTriplet``.
 
 The LAB -> RGB conversion is ``solver.color.lab2rgb_u8``, equal to OpenCV's
-``COLOR_LAB2RGB`` on every input. ``PiecesDataset`` (the pair dataset of
-the pajigsaw baseline) is not ported yet (ROADMAP queue A item 8).
+``COLOR_LAB2RGB`` on every input.
 """
 
 from __future__ import annotations
@@ -24,6 +24,30 @@ def piece_to_rgb_image(piece: PuzzlePiece) -> Image.Image:
     if img.dtype != np.uint8:
         img = np.clip(img, 0, 255).astype(np.uint8)
     return Image.fromarray(lab2rgb_u8(img))
+
+
+class PiecesDataset:
+    """Every ordered pair (i, j), i != j, of ``pieces`` as a stacked pair
+    image [2, H, W, 3] float32, with its index into ``entries`` as the
+    target."""
+
+    def __init__(self, pieces: List[PuzzlePiece], transform: Optional[Callable] = None):
+        self.pieces = pieces
+        self.transform = transform
+        self.entries = [(i, j) for i in range(len(pieces))
+                        for j in range(len(pieces)) if i != j]
+
+    def __getitem__(self, index: int):
+        i, j = self.entries[index]
+        first_img = piece_to_rgb_image(self.pieces[i])
+        second_img = piece_to_rgb_image(self.pieces[j])
+        if self.transform is not None:
+            first_img, second_img = self.transform(first_img, second_img)
+        stacked = np.stack([np.asarray(first_img), np.asarray(second_img)], axis=0)
+        return stacked.astype(np.float32), np.asarray(index, np.int32)
+
+    def __len__(self):
+        return len(self.entries)
 
 
 class PiecesImages:

@@ -16,10 +16,14 @@ def resolve_device(arg: Optional[Union[str, torch.device]] = None) -> torch.devi
     """``cuda`` by default; ``cpu`` only when asked for.
 
     Also pins float32 math to full float32: cuBLAS matmuls and cuDNN
-    convolutions (the PatchEmbed conv) would otherwise be free to run in
-    TF32, which keeps about three decimal digits."""
+    convolutions (the PatchEmbed conv, the BatchNorm models' convs) would
+    otherwise be free to run in TF32, which keeps about three decimal
+    digits; and makes cuDNN pick deterministic convolution algorithms (its
+    backward ones otherwise include atomics-based ones, and two steps from
+    one state would differ)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda" if arg is None else arg)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

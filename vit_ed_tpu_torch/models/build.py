@@ -1,21 +1,24 @@
 """Model factory keyed on MODEL.TYPE (``vit_ed_tpu/models/build.py``).
 
-Builds the pjs ViT-ED (the pair scorer of every pair path) and the plain
-ViT (the embedding model of the triplet baselines). Other model types and
-the options not ported yet raise NotImplementedError naming the ROADMAP
-item that ports them.
+Builds every type of the JAX factory: the pjs ViT-ED (the pair scorer of
+every pair path), the plain ViT (the embedding model of the triplet
+baselines), and the BatchNorm baselines ``ss`` / ``ss2`` / ``ss2ce``
+(SimSiam, models/simsiam.py) and ``resnet`` / ``mixconv``
+(models/resnet.py). The options not ported yet raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
-from typing import Union
-
 import torch
+from torch import nn
 
+from vit_ed_tpu_torch.models.resnet import build_resnet_model
+from vit_ed_tpu_torch.models.simsiam import build_simsiam
 from vit_ed_tpu_torch.models.vit import ViT
 from vit_ed_tpu_torch.models.vit_ed import ViTED
 
-BUILT_TYPES = ("pjs", "vit")
+BUILT_TYPES = ("pjs", "vit", "ss", "ss2", "ss2ce", "resnet", "mixconv")
 
 
 def compute_dtype(config) -> torch.dtype:
@@ -35,26 +38,30 @@ def _unported(config):
         (tpu.TENSOR_PARALLEL, "TPU.TENSOR_PARALLEL", "queue A item 12"),
         (tpu.EXPERT_PARALLEL, "TPU.EXPERT_PARALLEL", "queue A item 12"),
         (tpu.PIPELINE_STAGES > 1, "TPU.PIPELINE_STAGES", "queue A item 12"),
-        (tpu.FAST_GELU, "TPU.FAST_GELU", "slice 1 leftovers: the tanh GELU"),
         (not tpu.USE_PALLAS_ATTENTION, "TPU.USE_PALLAS_ATTENTION False",
          "none: the port always runs its attention kernel on the card"),
     ]
     return [(name, item) for on, name, item in checks if on]
 
 
-def build_model(config, device=None) -> Union[ViTED, ViT]:
+def build_model(config, device=None) -> nn.Module:
     """Build the MODEL.TYPE model on ``device`` (float32 parameters; the
     compute dtype follows AMP_ENABLE)."""
-    if config.MODEL.TYPE not in BUILT_TYPES:
-        raise NotImplementedError(
-            f"MODEL.TYPE {config.MODEL.TYPE!r} is not ported yet "
-            f"(ROADMAP queue A item 8); {' and '.join(map(repr, BUILT_TYPES))} are")
+    model_type = config.MODEL.TYPE
+    if model_type not in BUILT_TYPES:
+        raise NotImplementedError(f"Unknown model: {model_type}")
     unported = _unported(config)
     if unported:
         name, item = unported[0]
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP {item})")
-    if config.MODEL.TYPE == "vit":
+    if model_type in ("ss", "ss2", "ss2ce"):
+        model = build_simsiam(config, model_type, compute_dtype(config))
+        return model.to(device) if device is not None else model
+    if model_type in ("resnet", "mixconv"):
+        model = build_resnet_model(config, model_type, compute_dtype(config))
+        return model.to(device) if device is not None else model
+    if model_type == "vit":
         vit = config.MODEL.VIT
         model = ViT(
             img_size=config.DATA.IMG_SIZE,
@@ -70,6 +77,7 @@ def build_model(config, device=None) -> Union[ViTED, ViT]:
             dtype=compute_dtype(config),
             use_checkpoint=config.TRAIN.USE_CHECKPOINT,
             drop_rate=config.MODEL.DROP_RATE,
+            fast_gelu=config.TPU.FAST_GELU,
         )
         return model.to(device) if device is not None else model
     pjs = config.MODEL.PJS
@@ -90,5 +98,6 @@ def build_model(config, device=None) -> Union[ViTED, ViT]:
         use_checkpoint=config.TRAIN.USE_CHECKPOINT,
         # the JAX factory feeds MODEL.DROP_RATE to the head dropout only
         drop_rate=config.MODEL.DROP_RATE,
+        fast_gelu=config.TPU.FAST_GELU,
     )
     return model.to(device) if device is not None else model

@@ -1,5 +1,5 @@
 """Weights across frameworks: JAX (flax) param trees and reference ``.pth``
-checkpoints -> the port's ViT-ED.
+checkpoints -> the port's models.
 
 The port's module tree uses the reference timm key layout, which is also
 what ``vit_ed_tpu/models/convert.py::params_to_torch_state_dict`` emits, so
@@ -9,11 +9,19 @@ a converted JAX tree loads with ``strict=True``. Layout changes:
 - PatchEmbed conv: flax [kh, kw, C, D] -> torch [D, C, kh, kw]
 - LayerNorm: scale/bias -> weight/bias
 - the fused qkv / kv projections keep their q|k|v column order
+
+The BatchNorm model types (``models/resnet.py``, ``models/simsiam.py``) keep
+flax's module names, so ``flax_variables_to_state_dict`` converts their
+``params`` and ``batch_stats`` by one rule per leaf name: ``kernel`` ->
+``weight`` (a conv's HWIO -> OIHW, a Dense's [in, out] transposed),
+``scale`` -> ``weight`` (BatchNorm, LayerNorm and StarReLU), ``mean`` /
+``var`` -> the ``running_mean`` / ``running_var`` buffers; ``bias`` and the
+LayerScale vectors keep their names.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -50,7 +58,8 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
                 f"(ROADMAP queue A item 12)")
         if "q_norm" in p["attn"]:
             raise NotImplementedError(
-                "qk_norm is not ported yet (ROADMAP: what slice 1 left out)")
+                "qk_norm is not ported yet (ROADMAP queue A item 8: no config key "
+                "reaches it)")
         stem, idx = name.rsplit("_", 1)
         prefix = f"{stem}.{idx}"
         put_ln(prefix + ".norm1", p["norm1"])
@@ -73,6 +82,32 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     if "head" in params:
         put_linear("head", params["head"])
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+         "var": "running_var"}
+
+
+def flax_variables_to_state_dict(params: Mapping[str, Any],
+                                 batch_stats: Optional[Mapping[str, Any]] = None
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (+ ``batch_stats``) of a BatchNorm model type -> the
+    port's state dict (float32 tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, prefix + name + ".")
+                continue
+            a = np.asarray(v, np.float32)
+            if name == "kernel":
+                a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+            sd[prefix + _LEAF.get(name, name)] = torch.tensor(np.ascontiguousarray(a))
+
+    walk(params, "")
+    walk(batch_stats or {}, "")
+    return sd
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

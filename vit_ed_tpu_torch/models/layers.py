@@ -15,7 +15,8 @@ use; the chosen rounding points, on bf16 activations:
 - ``LayerNorm``: statistics, normalisation, scale and bias in float32,
   one rounding at the end (flax computes its statistics in f32);
 - ``PatchEmbed``: the conv in bf16 (f32 accumulate), then the bf16 bias;
-- GELU: the bf16 chain of ops/gelu.py;
+- GELU: the bf16 chains of ops/gelu.py (the exact one, or the tanh one
+  under ``TPU.FAST_GELU``);
 - residual adds and LayerScale in bf16, as flax does on bf16 streams.
 
 In float32 every one of these is the plain float32 computation.
@@ -36,7 +37,7 @@ from vit_ed_tpu_torch.ops.attention import (
     fused_attention_packed_qkv,
     fused_attention_packed_qkv_cls,
 )
-from vit_ed_tpu_torch.ops.gelu import gelu_exact
+from vit_ed_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
 
 
 class Linear(nn.Module):
@@ -80,20 +81,50 @@ class DropPath(nn.Module):
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
 
+    def mask_shape(self, x: torch.Tensor):
+        return (x.shape[0],) + (1,) * (x.ndim - 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError(
-                "DropPath in training mode needs a seeded generator: call "
-                "ViTED.seed_drop_path(seed) after moving the model to its "
-                "device")
+                f"{type(self).__name__} in training mode needs a seeded "
+                f"generator: call the model's seed_drop_path(seed) after "
+                f"moving the model to its device")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
         mask = torch.bernoulli(
-            torch.full(shape, keep, dtype=torch.float32, device=x.device),
+            torch.full(self.mask_shape(x), keep, dtype=torch.float32, device=x.device),
             generator=self.generator)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+class Dropout(DropPath):
+    """Element-wise dropout (flax ``nn.Dropout``): DropPath with one draw per
+    element, from the same model-owned generator."""
+
+    def mask_shape(self, x: torch.Tensor):
+        return x.shape
+
+
+def normalize_images(x: torch.Tensor) -> torch.Tensor:
+    """uint8 images -> float32 with the canonical (x/255 - 0.5)/0.5 (the u8
+    wire of ``TPU.DEVICE_NORMALIZE``); float images pass through."""
+    if x.dtype == torch.uint8:
+        return (x.float() / 255.0 - 0.5) / 0.5
+    return x
+
+
+def seed_generators(model: nn.Module, seed: int) -> torch.Generator:
+    """Create one generator on the device of ``model``'s parameters, seed
+    it with ``seed`` and hand it to every DropPath and Dropout of the
+    model; returns it (its state goes into checkpoints)."""
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = gen
+    return gen
 
 
 class PatchEmbed(nn.Module):
@@ -112,16 +143,18 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (timm Mlp; its dropouts are 0 in every
-    config of the repo and are not ported, see ViTED)."""
+    """fc1 -> GELU (exact, or tanh with ``fast_gelu``) -> fc2 (timm Mlp; its
+    dropouts take the projection dropout rate, which no config of the repo
+    reaches, see ViTBase)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, fast_gelu: bool = False):
         super().__init__()
         self.fc1 = Linear(dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, dim)
+        self.act = gelu_tanh if fast_gelu else gelu_exact
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class LayerScale(nn.Module):
@@ -195,14 +228,14 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, init_values: Optional[float] = None,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fast_gelu: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias)
         self.ls1 = _scale(dim, init_values)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu)
         self.ls2 = _scale(dim, init_values)
         self.drop_path2 = DropPath(drop_path)
 
@@ -217,7 +250,7 @@ class CrossBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, init_values: Optional[float] = None,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fast_gelu: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias)
@@ -229,7 +262,7 @@ class CrossBlock(nn.Module):
         self.ls_cross = _scale(dim, init_values)
         self.drop_path_cross = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu)
         self.ls2 = _scale(dim, init_values)
         self.drop_path2 = DropPath(drop_path)
 
@@ -274,11 +307,12 @@ class CrossBlock(nn.Module):
 
 class ViTBase(nn.Module):
     """What the port's transformers (``ViTED``, ``ViT``) share in training:
-    the compute dtype, the model-owned stochastic-depth generator, block
-    recomputation under ``use_checkpoint`` and the image embedding. The
-    dropouts other than DropPath are 0 in every config of the repo; they
-    are taken as arguments and training with a non-zero one raises
-    (ROADMAP)."""
+    the compute dtype, the model-owned generator of DropPath and the head
+    dropout, block recomputation under ``use_checkpoint`` and the image
+    embedding. ``dropouts`` are the position, projection and attention
+    dropout rates: no config key reaches them (the JAX factory passes
+    ``MODEL.DROP_RATE`` to the head dropout only), they are taken as
+    arguments, and training with a non-zero one raises (ROADMAP)."""
 
     def __init__(self, dtype: torch.dtype, use_checkpoint: bool, **dropouts: float):
         super().__init__()
@@ -288,16 +322,10 @@ class ViTBase(nn.Module):
         self.drop_path_generator: Optional[torch.Generator] = None
 
     def seed_drop_path(self, seed: int) -> torch.Generator:
-        """Create the stochastic-depth generator on the model's device,
-        seed it and hand it to every DropPath; returns it (its state goes
-        into checkpoints)."""
-        gen = torch.Generator(device=self.pos_embed.device)
-        gen.manual_seed(seed)
-        self.drop_path_generator = gen
-        for m in self.modules():
-            if isinstance(m, DropPath):
-                m.generator = gen
-        return gen
+        """Seed the generator of every DropPath and Dropout
+        (``seed_generators``); returns it."""
+        self.drop_path_generator = seed_generators(self, seed)
+        return self.drop_path_generator
 
     def _run(self, fn, *args: torch.Tensor) -> torch.Tensor:
         """``fn(*args)``, recomputed in the backward pass when
@@ -333,9 +361,6 @@ class ViTBase(nn.Module):
         if self.training and any(self.dropouts.values()):
             on = sorted(k for k, v in self.dropouts.items() if v)
             raise NotImplementedError(
-                f"training with non-zero {on} is not ported yet (ROADMAP: "
-                f"what the training slice left out); every config of the repo keeps "
-                f"them at 0")
-        if x.dtype == torch.uint8:
-            x = (x.float() / 255.0 - 0.5) / 0.5
-        return self.patch_embed(x.to(self.dtype))
+                f"training with non-zero {on} is not ported yet (ROADMAP queue A "
+                f"item 8); no config key reaches them")
+        return self.patch_embed(normalize_images(x).to(self.dtype))

@@ -43,9 +43,10 @@ class ViT(ViTBase):
                  dtype: torch.dtype = torch.float32,
                  use_checkpoint: bool = False, drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0):
-        super().__init__(dtype, use_checkpoint, drop_rate=drop_rate,
-                         pos_drop_rate=pos_drop_rate,
+                 attn_drop_rate: float = 0.0, fast_gelu: bool = False):
+        # drop_rate (MODEL.DROP_RATE) is taken and unused: the JAX ViT
+        # builds no head dropout
+        super().__init__(dtype, use_checkpoint, pos_drop_rate=pos_drop_rate,
                          proj_drop_rate=proj_drop_rate,
                          attn_drop_rate=attn_drop_rate)
         self.img_size = img_size
@@ -61,7 +62,8 @@ class ViT(ViTBase):
         # the JAX model's float64 linspace
         dpr = np.linspace(0, drop_path_rate, depth).tolist()
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values, dpr[i])
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values, dpr[i],
+                  fast_gelu)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim)
         self.head = Linear(embed_dim, num_classes)

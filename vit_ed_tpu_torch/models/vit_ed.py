@@ -38,6 +38,7 @@ from torch import nn
 from vit_ed_tpu_torch.models.layers import (
     Block,
     CrossBlock,
+    Dropout,
     LayerNorm,
     Linear,
     PatchEmbed,
@@ -57,9 +58,8 @@ class ViTED(ViTBase):
                  dtype: torch.dtype = torch.float32,
                  use_checkpoint: bool = False, drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0):
-        super().__init__(dtype, use_checkpoint, drop_rate=drop_rate,
-                         pos_drop_rate=pos_drop_rate,
+                 attn_drop_rate: float = 0.0, fast_gelu: bool = False):
+        super().__init__(dtype, use_checkpoint, pos_drop_rate=pos_drop_rate,
                          proj_drop_rate=proj_drop_rate,
                          attn_drop_rate=attn_drop_rate)
         self.img_size = img_size
@@ -80,13 +80,15 @@ class ViTED(ViTBase):
         dpr = torch.linspace(0, drop_path_rate, depth).tolist()
         dpr_cross = torch.linspace(0, drop_path_rate, c_depth).tolist()
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values, dpr[i])
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values, dpr[i],
+                  fast_gelu)
             for i in range(depth))
         self.cross_blocks = nn.ModuleList(
             CrossBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values,
-                       dpr_cross[i])
+                       dpr_cross[i], fast_gelu)
             for i in range(c_depth))
         self.norm = LayerNorm(embed_dim)
+        self.head_drop = Dropout(drop_rate)
         self.head = Linear(embed_dim, num_classes)
 
     @property
@@ -130,8 +132,8 @@ class ViTED(ViTBase):
 
     # ---------------------------------------------------------------- heads
     def forward_head(self, x: torch.Tensor) -> torch.Tensor:
-        """CLS-token head."""
-        return self.head(x[:, 0])
+        """CLS-token head, behind the head dropout in training."""
+        return self.head(self.head_drop(x[:, 0]))
 
     def decode_head(self, x1_feats: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """Pair logits from precomputed encoder features and raw image 2."""

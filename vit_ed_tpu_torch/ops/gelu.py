@@ -1,4 +1,5 @@
-"""Exact (erf) GELU with the JAX package's bf16 rounding chain.
+"""Exact (erf) GELU with the JAX package's bf16 rounding chain, and the
+tanh GELU of ``TPU.FAST_GELU``.
 
 The reference activation is torch's exact-erf ``nn.GELU``. The JAX package
 evaluates it as ``jax.nn.gelu(x, approximate=False)`` does:
@@ -26,6 +27,15 @@ polynomial erfc and the density with exp2, the port with
 ``torch.special.erfc`` and ``exp`` in f32; gradients carry no bit contract
 (tests/test_torch_gelu.py states the measured difference). float32 inputs
 keep plain autograd of the exact GELU, as ``jax.nn.gelu`` does.
+
+``gelu_tanh`` is ``jax.nn.gelu(x, approximate=True)`` op for op:
+
+    x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))))
+
+with both constants rounded to the input dtype (JAX rounds the weakly
+typed 0.044715 to bf16; a Python scalar in torch would stay float32) and,
+on bf16, every step rounded to bf16 (``x^3`` as ``x * x * x``). Its gradient is autograd's
+through the same chain (no bit contract).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
 def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
@@ -65,3 +76,8 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
             and torch.is_grad_enabled()):
         return _GeluBf16.apply(x)
     return _gelu_chain(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    c, k = torch.tensor([_SQRT_2_OVER_PI, 0.044715], dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))

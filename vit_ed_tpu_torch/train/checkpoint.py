@@ -1,7 +1,8 @@
 """Checkpoint I/O of the training slice (``vit_ed_tpu/train/checkpoint.py``)
 on ``torch.save``.
 
-A checkpoint is one file ``OUTPUT/<name>.ckpt`` holding ``model`` and
+A checkpoint is one file ``OUTPUT/<name>.ckpt`` holding ``model`` (the
+parameters and, for the BatchNorm model types, the running statistics) and
 ``optimizer`` state dicts, ``step`` (optimizer updates applied), ``epoch``,
 ``min_loss``, ``in_epoch_opt_steps`` (an int: the updates of ``epoch``
 already applied by a mid-epoch preemption save, 0 at an epoch's end) and

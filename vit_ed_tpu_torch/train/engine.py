@@ -31,9 +31,22 @@ three or more intervals between the loop's syncs.
 ``TPU.PROFILE_DIR`` set it also writes a ``torch.profiler`` trace of the
 timed region.
 
+BatchNorm model types (``ss``, ``ss2``, ``ss2ce``, ``resnet``,
+``mixconv``) keep their running statistics as module buffers: each
+micro-batch's training forward updates them once, in the order the JAX
+``make_train_step`` threads its ``batch_stats`` (micro-batch by
+micro-batch, each BatchNorm in call order); ``model.state_dict()`` carries
+them into every checkpoint and a resume, mid-epoch too, restores them with
+the weights; ``model.eval()`` normalises with them, as the JAX
+``model_variables()`` does. A model that returns a tuple (the SimSiam
+types) feeds its first element to the default loss, as in the JAX step.
+Torch modules take their shapes at construction, so the JAX trainer's
+``_example_input`` (an init batch keyed by type: ``pjs`` and ``ss`` take
+stacked pairs) has no counterpart; ``step_model_flops`` reads pairs or
+images off each batch's shape.
+
 Not ported yet (ROADMAP, "what the slices left out"): a device mesh and every
-parallelism switch (they raise), BatchNorm running statistics and MoE aux
-losses.
+parallelism switch (they raise) and MoE aux losses.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ from vit_ed_tpu_torch.train.optim import (
 from vit_ed_tpu_torch.utils import AverageMeter, create_logger, set_seed
 from vit_ed_tpu_torch.utils.flops import (
     bf16_peak_tflops,
+    layer_step_flops,
     pjs_step_flops,
     vit_step_flops,
 )
@@ -74,6 +88,8 @@ from vit_ed_tpu_torch.utils.preempt import PreemptionGuard
 from vit_ed_tpu_torch.utils.profiler import maybe_trace
 
 Batch = Dict[str, torch.Tensor]
+# the model types whose FLOPs utils/flops.py counts layer by layer
+LAYER_COUNTED = ("ss", "ss2", "ss2ce", "resnet", "mixconv")
 LossFn = Callable[[torch.nn.Module, Batch], torch.Tensor]
 
 
@@ -147,6 +163,7 @@ class Trainer:
                                  self.logger)
 
         self.data_loader_registers: Dict[str, DataLoader] = {}
+        self._layer_flops: Dict[Tuple[int, ...], int] = {}
 
     # ------------------------------------------------------------- data hooks
     def get_transforms(self) -> Dict[str, Callable]:
@@ -194,9 +211,12 @@ class Trainer:
     def make_loss_fn(self, criterion: Callable) -> LossFn:
         """``loss_fn(model, batch) -> scalar loss`` on the device tensors of
         one prepared batch. The default is the supervised pair loss:
-        ``criterion`` on the float32 logits of the stacked pairs."""
+        ``criterion`` on the float32 logits of the stacked pairs (on the first
+        output of a model that returns a tuple)."""
         def loss_fn(model, batch):
-            return criterion(model(batch["samples"]).float(), batch["targets"])
+            out = model(batch["samples"])
+            out = out[0] if isinstance(out, tuple) else out
+            return criterion(out.float(), batch["targets"])
 
         return loss_fn
 
@@ -322,30 +342,45 @@ class Trainer:
             self.logger.info(f"=> loaded successfully (epoch {epoch}, "
                              f"{self.step} updates applied)")
 
-    def step_model_flops(self, micro_batches: List[Dict[str, np.ndarray]]) -> int:
+    def step_model_flops(self, micro_batches: List[Dict[str, np.ndarray]]
+                         ) -> Optional[int]:
         """Model FLOPs (forward + backward, utils/flops.py) of one update,
         by MODEL.TYPE. A ViT counts every image of ``samples`` (every axis
         before [H, W, C]: a triplet item [4, 3, H, W, C] holds 12). A pjs
         model counts per micro-batch its images and its live pairs (the
         mined-pair buffer's ``pair_mask``; padding rows are not counted),
-        or one pair per stacked item."""
+        or one pair per stacked item. The BatchNorm types count their
+        convolutions and Dense layers at the batch's shape. None for a model
+        that none of these counts (the MFU line then gives no percentage)."""
         total = 0
         for batch in micro_batches:
             shape = np.shape(batch["samples"])
             if self.config.MODEL.TYPE == "vit":
                 total += sum(vit_step_flops(self.model, int(np.prod(shape[:-3]))))
-                continue
-            n_pairs = (int(np.asarray(batch["pair_mask"]).sum())
-                       if "pair_mask" in batch else int(shape[0]))
-            total += sum(pjs_step_flops(self.model, int(shape[0]), n_pairs))
+            elif self.config.MODEL.TYPE == "pjs":
+                n_pairs = (int(np.asarray(batch["pair_mask"]).sum())
+                           if "pair_mask" in batch else int(shape[0]))
+                total += sum(pjs_step_flops(self.model, int(shape[0]), n_pairs))
+            elif self.config.MODEL.TYPE in LAYER_COUNTED:
+                if shape not in self._layer_flops:
+                    self._layer_flops[shape] = sum(layer_step_flops(self.model, shape))
+                total += self._layer_flops[shape]
+            else:
+                return None
         return total
 
-    def _log_mfu(self, step_seconds: float, step_flops: float,
+    def _log_mfu(self, step_seconds: float, step_flops: Optional[float],
                  model_type: str) -> str:
         """The epoch's model-FLOP MFU line: mean model FLOPs per update over
         the median time per update between syncs, against the card's dense
         bf16 peak (or TPU.PEAK_TFLOPS where a config sets it); no
-        percentage where the peak is unknown."""
+        percentage where the peak or the model's count is unknown."""
+        if step_flops is None:
+            line = (f"Model FLOPs: not counted for MODEL.TYPE {model_type}; "
+                    f"{step_seconds * 1e3:.1f} ms per update (median between "
+                    f"syncs, host input included); model-FLOP MFU not computed")
+            self.logger.info(line)
+            return line
         peak, name = bf16_peak_tflops(self.device, self.model.dtype,
                                       self.config.TPU.PEAK_TFLOPS)
         tfs = step_flops / step_seconds / 1e12
@@ -435,8 +470,9 @@ class Trainer:
             f"EPOCH {epoch} training takes "
             f"{datetime.timedelta(seconds=int(epoch_time))}")
         if len(sync_rates) >= 3:   # one or two intervals are noise
-            self._log_mfu(float(np.median(sync_rates)),
-                          float(np.mean(step_flops)), self.config.MODEL.TYPE)
+            counted = None if None in step_flops else float(np.mean(step_flops))
+            self._log_mfu(float(np.median(sync_rates)), counted,
+                          self.config.MODEL.TYPE)
 
     # ------------------------------------------------------------- throughput
     def throughput_batch(self) -> np.ndarray:

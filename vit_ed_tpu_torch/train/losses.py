@@ -1,7 +1,7 @@
 """Losses (``vit_ed_tpu/train/losses.py``): binary cross-entropy on
 logits, plain and over a padded pair buffer, and the cosine-distance
-triplet losses of the ViT embedding baselines. The SimSiam loss waits for
-the entry that uses it (ROADMAP).
+triplet losses of the ViT embedding baselines, and the SimSiam loss
+(``negative_cosine_similarity``) with ``loss_combination``.
 
 The triplet losses copy the JAX formulas op for op, gradients included:
 the norm is clamped at 1e-12 (``F.cosine_similarity`` clamps at 1e-8 and
@@ -12,6 +12,8 @@ in halves, as ``jnp.maximum`` does) and the batch-hard reductions are
 """
 
 from __future__ import annotations
+
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -80,3 +82,20 @@ def batch_wise_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor,
     loss = _hinge(d_pos - d_neg + margin)
     return (torch.where(valid, loss, torch.zeros_like(loss)).sum()
             / valid.sum().clamp(min=1))
+
+
+def negative_cosine_similarity(predict: torch.Tensor, actual: torch.Tensor) -> torch.Tensor:
+    """SimSiam loss: minus the mean over the batch of the cosine of each row
+    pair, each row divided by its norm clamped at 1e-12."""
+    pn = predict / torch.linalg.vector_norm(predict, dim=1, keepdim=True).clamp(min=1e-12)
+    an = actual / torch.linalg.vector_norm(actual, dim=1, keepdim=True).clamp(min=1e-12)
+    return -(pn * an).sum(dim=1).mean()
+
+
+def loss_combination(criterions: Sequence[Callable]) -> Callable:
+    """The sum of ``criterions``, each called with the same arguments."""
+
+    def fn(*args, **kwargs):
+        return sum(c(*args, **kwargs) for c in criterions)
+
+    return fn

@@ -1,6 +1,6 @@
 """Model FLOPs of a train step, counted from the model's geometry (the pjs
-ViT-ED's pairs or the plain ViT's images), and the card's peak for the
-trainer's MFU line.
+ViT-ED's pairs, the plain ViT's images, the BatchNorm models' convolutions
+and Dense layers), and the card's peak for the trainer's MFU line.
 
 The attention kernels are ctypes launches that ``torch.utils.flop_counter``
 does not see, so the count is analytic. It counts the matrix products the
@@ -21,16 +21,28 @@ recomputation of the attention probabilities in the backward kernels and
 of whole blocks under ``TRAIN.USE_CHECKPOINT``, and the pair gather's
 backward product: they are work a kernel or a schedule chooses, not work
 the model needs. So the count is *model* FLOPs, and the MFU it gives is
-model-FLOP utilisation. The JAX trainer reports XLA's ``cost_analysis``
+model-FLOP utilisation.
+
+The BatchNorm model types (``models/resnet.py``, ``models/simsiam.py``)
+are counted by ``layer_step_flops``: one forward of the model on the meta
+device (no memory, no arithmetic) with a hook on every ``Conv2d`` and
+``Linear`` that counts two FLOPs per multiply-add at the layer's output
+size (a convolution's output elements x its input channels per group x
+its kernel area; a Dense's output elements x its input features); the
+backward is twice the forward less the stems' input gradient (the images
+need none). The norms, activations, pooling and the loss are not counted.
+
+The JAX trainer reports XLA's ``cost_analysis``
 instead: the FLOPs its compiled program executes, which include its pair
 kernels' doubled products, an upper bound on the model-FLOP number.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 # dense bf16 tensor-core peaks, TFLOP/s, by torch.cuda.get_device_name();
 # the SXM5 H100's 989.4 is NVIDIA's H100 datasheet figure without sparsity
@@ -84,6 +96,41 @@ def vit_step_flops(model, n_images: int) -> Tuple[int, int]:
     forward = n_images * (embed + len(model.blocks) * block + 2 * c * k)
     backward = 2 * forward - n_images * embed
     return forward, backward
+
+
+def layer_step_flops(model: nn.Module, sample_shape: Sequence[int]) -> Tuple[int, int]:
+    """(forward, backward) model FLOPs of one step of a BatchNorm model type
+    on a batch of ``sample_shape`` (e.g. [B, 2, H, W, 3] for ``ss``): every
+    ``Conv2d`` and ``Linear`` at its output size, counted on the meta
+    device; the backward twice the forward less the stems' input
+    gradient."""
+    from vit_ed_tpu_torch.models.layers import Linear
+    from vit_ed_tpu_torch.models.resnet import Conv2d, ResNet
+
+    stems = {id(m.conv1) for m in model.modules() if isinstance(m, ResNet)}
+    total, stem = [0], [0]
+
+    def hook(mod, _inputs, out):
+        per_out = mod.weight[0].numel() if isinstance(mod, Conv2d) else mod.weight.shape[1]
+        n = 2 * out.numel() * per_out
+        total[0] += n
+        if id(mod) in stems:
+            stem[0] += n
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv2d, Linear))]
+    tensors = {k: torch.empty_like(v, device="meta")
+               for k, v in list(model.named_parameters()) + list(model.named_buffers())}
+    training = model.training
+    model.eval()
+    try:
+        torch.func.functional_call(
+            model, tensors, (torch.empty(tuple(sample_shape), device="meta"),))
+    finally:
+        model.train(training)
+        for h in handles:
+            h.remove()
+    return total[0], 2 * total[0] - stem[0]
 
 
 def bf16_peak_tflops(device: torch.device, dtype: torch.dtype,
