@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel times of two trees of this repository on one CUDA card, in turns.
 
-    python3 chip_ab.py <other> [--phases 3,4,7,11,9,5,9w,13w]
+    python3 chip_ab.py <other> [--phases 3,4,7,11,9,5,9w,13w,15d]
 
 <other> is another root of the repository, for example a ``git archive``
 of the parent commit unpacked into a git-ignored directory, or a copy of
@@ -20,6 +20,9 @@ of its own that builds that tree's kernels and runs its own
 - 9: the device time of one hisfrag training step (bf16, 16 images -> 49
   pairs, a synthetic corpus from a seed) under torch.profiler, in all and
   for each attention kernel, as phase 9's ``step_breakdown`` takes it;
+- 15d (host clock): ``score_dense`` alone, as phase 15's score stage runs
+  it (pjs patch8_64, bf16, random weights from seed 0, 150 random pieces:
+  22,350 ordered pairs), the median pairs/s of runs 2-6 of six;
 - 5, 9w, 13w (host clock, end to end): the scan's pairs/s (phase 5:
   ``hisfrag --mode test`` on its 64 JPEGs), and for the two training paths
   (phase 9: hisfrag, 16 images -> 49 pairs; phase 13: DIV2K, 128 pairs)
@@ -119,6 +122,26 @@ def scan_rate(c):
             "scan s": scorer.scan_seconds}
 
 
+def dense_rate(c):
+    """{row: value} of ``score_dense`` at phase 15's shapes: the median
+    pairs/s of runs 2-6 of six over 150 random pieces."""
+    import numpy as np
+    import torch
+
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+
+    config = c.get_config(types.SimpleNamespace(cfg=c.EVAL_CFG, opts=None))
+    torch.manual_seed(0)
+    model = c.build_model(config, torch.device("cuda")).eval()
+    imgs = np.random.default_rng(0).normal(size=(150, 64, 64, 3)).astype(np.float32)
+    scorer = PairwiseScorer(model, num_outputs=4, pair_chunk=c.PUZZLE_BATCH)
+    rates = []
+    for _ in range(6):
+        scorer.score_dense(imgs, batch_size=c.PUZZLE_BATCH)
+        rates.append(150 * 149 / scorer.dense_seconds["score"])
+    return {"score_dense pairs/s": float(np.median(rates[1:]))}
+
+
 def train_wall(c, puzzle):
     """{row: value} of phase 9's (hisfrag) or phase 13's (DIV2K) train
     epoch with the loader: the median step (host clock, ending in a
@@ -198,8 +221,9 @@ def child(phases):
         if phase in ("4", "9"):
             profiled = chunk_profile(c) if phase == "4" else step_profile(c)
             rows.update({f"{phase}:{k}": v for k, v in profiled.items()})
-        elif phase in ("5", "9w", "13w"):
-            wall = scan_rate(c) if phase == "5" else train_wall(c, phase == "13w")
+        elif phase in ("5", "9w", "13w", "15d"):
+            wall = (scan_rate(c) if phase == "5" else dense_rate(c) if phase == "15d"
+                    else train_wall(c, phase == "13w"))
             rows.update({f"{phase}:{k}": v for k, v in wall.items()})
         else:
             rows.update({f"{phase}:{k}": v["ms"] for k, v in times[phase](gen).items()})

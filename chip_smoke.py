@@ -166,6 +166,25 @@ nothing from the JAX package. Phases, each printing its own lines:
     vit_ed_tpu_torch.solver_driver`` on two synthetic JPEGs; (f)
     ``TPU.FAST_GELU`` f32 card against CPU (1e-3) and ``MODEL.DROP_RATE``
     0.1 reproducible from one generator seed and absent in eval.
+19. the sharded test path, int8 scoring and explainability: (a) ``python -m
+    vit_ed_tpu_torch.hisfrag --mode test --opts TPU.SHARDED_EVAL_METRICS
+    True TPU.EVAL_SLAB_ON_DISK True`` on phase 5's corpus: its rows equal
+    phase 5's scores bit for bit, its metrics phase 5's, no CSV; (b) the
+    same at N = 256 in a subprocess (pairs/s, the token cache, the
+    process's VmHWM); (c) at N = 128 in row blocks of 16: SIGKILL once two
+    blocks are marked done, a rerun resumes, and its slab equals an
+    uninterrupted scan's bit for bit; (d) the int8 GEMM (``ops/quant.py``,
+    ``torch._int_mm``) at a 64-pair chunk's shapes and the CLS rows (M =
+    64, 12), card against CPU bit for bit in f32 and bf16, timed against the
+    bf16 product and Linear with its bound at the int8 peak, and the
+    profiler's name of its kernel; (e) ``--mode test --opts
+    TPU.INT8_SCORE True`` at N = 64: pairs/s and mAP next to phase 5's, the
+    scores within 0.25 of bf16's, the pair kernels and int8 GEMMs launched;
+    (f) ``python -m vit_ed_tpu_torch.evaluation`` with TPU.INT8_SCORE on
+    one of phase 15's puzzles: the 4-D kernels and int8 GEMMs launched;
+    (g) ``ops/explain.py``'s ``generate_relevance`` at full width on one
+    pair, f32 card against CPU (1e-3 of the max), and ``keep_attn``
+    forwards against fused ones (f32 1e-3, bf16 5e-2 of the max).
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -199,6 +218,7 @@ from vit_ed_tpu_torch.device import resolve_device  # noqa: E402
 from vit_ed_tpu_torch.models.build import build_model  # noqa: E402
 from vit_ed_tpu_torch.ops import _build  # noqa: E402
 from vit_ed_tpu_torch.ops import attention as A  # noqa: E402
+from vit_ed_tpu_torch.ops import quant as Q  # noqa: E402
 
 FLAGSHIP_CFG = os.path.join(ROOT, "configs", "hisfrag", "hisfrag20_patch16_512.yaml")
 C, H, D = 384, 6, 64
@@ -578,6 +598,7 @@ def chunk_breakdown(model, kv_row, adv):
                                                " the profiler saw no device time)"))
     for key, t, cnt in rows[:12]:
         print(f"    {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}%  x{cnt:<4d} {key[:90]}")
+    return rows
 
 
 def write_corpus(root, writers=16, pages=2, frags=2, seed=0, sub="test"):
@@ -585,16 +606,25 @@ def write_corpus(root, writers=16, pages=2, frags=2, seed=0, sub="test"):
     ``<sub>/w{W}_{P}_{F}.jpg``, ~600 x 700 px."""
     from PIL import Image
 
+    from concurrent.futures import ThreadPoolExecutor
+
     rng = np.random.default_rng(seed)
     d = os.path.join(root, sub)
     os.makedirs(d, exist_ok=True)
-    for w in range(writers):
-        base = rng.integers(0, 256, size=(600 + 8 * w, 700, 3))
-        for p in range(pages):
-            for f in range(frags):
-                arr = np.clip(base + rng.integers(-40, 40, base.shape), 0, 255)
-                Image.fromarray(arr.astype(np.uint8)).save(
-                    os.path.join(d, f"w{w:03d}_{p}_{f}.jpg"), quality=90)
+
+    # the draws in order; the encodes on threads (PIL releases the GIL)
+    with ThreadPoolExecutor(8) as pool:
+        futs = []
+        for w in range(writers):
+            base = rng.integers(0, 256, size=(600 + 8 * w, 700, 3))
+            for p in range(pages):
+                for f in range(frags):
+                    arr = np.clip(base + rng.integers(-40, 40, base.shape), 0, 255)
+                    futs.append(pool.submit(
+                        Image.fromarray(arr.astype(np.uint8)).save,
+                        os.path.join(d, f"w{w:03d}_{p}_{f}.jpg"), quality=90))
+        for fut in futs:
+            fut.result()
     return writers * pages * frags
 
 
@@ -656,7 +686,8 @@ def phase_main_path(tmp):
     # upper triangle only: the lower one mirrors (j, i), and the model is
     # not symmetric in its two images
     scan_vs_direct(data, dm, [(0, 0), (0, 5), (3, 17), (9, 20), (40, 63)])
-    return counts
+    return counts, {"metrics": metrics, "dm": dm,
+                    "rate": scorer.pairs_done / scorer.scan_seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -2041,7 +2072,12 @@ def phase_puzzle_eval(tmp, ckpt_path, gen):
     flagship_fallback()
     dense_breakdown(imgs)
     times = eval_kernel_times(gen)
-    return shapes, times, len(records)
+    # the accuracies of the first puzzle alone, for phase 19f
+    in_subset = [r for r in records if r["subset"] == EVAL_SUBSETS[0]]
+    i = next(k for k, r in enumerate(in_subset) if r["image"] == first)
+    summary = {"rate": rate, "accuracies": {
+        k: round(float(v[i]), 4) for k, v in in_subset[i]["results"][0].items()}}
+    return shapes, times, len(records), summary
 
 
 # ---------------------------------------------------------------------------
@@ -3773,6 +3809,414 @@ def phase_pajigsaw(tmp, gen):
     return rows, lrf_shapes
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the one-process sharded test path, int8 scoring, explainability
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
+# the int8 GEMMs of one 64-pair scan chunk at patch16_512: (M, K, N)
+INT8_CHUNK = 64 * 1025
+INT8_SHAPES = ((INT8_CHUNK, 384, 1152), (INT8_CHUNK, 384, 768), (INT8_CHUNK, 384, 384),
+               (INT8_CHUNK, 384, 1536), (INT8_CHUNK, 1536, 384),
+               (64, 384, 384), (64, 384, 1536), (64, 1536, 384),
+               (12, 384, 384), (12, 384, 1536), (12, 1536, 384))
+SHARDED_OPTS = ("TPU.SHARDED_EVAL_METRICS", "True", "TPU.EVAL_SLAB_ON_DISK", "True")
+# the entry in a subprocess: runs ``main``, then prints one JSON line with
+# the scan's numbers, the peak of the host memory it allocated from Python
+# (tracemalloc: numpy arrays and Python objects, not what CUDA or native
+# libraries allocate) and the process's peak resident memory (VmHWM where
+# /proc/self/status has it, else getrusage's ru_maxrss: the same counter),
+# also as it stood before the entry ran
+SCAN_CHILD = """
+import json, resource, sys, tracemalloc
+import torch
+from vit_ed_tpu_torch.hisfrag import main
+torch.ones(1, device="cuda").sum().item()
+base = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+tracemalloc.start()
+metrics, rows, names, scorer = main(sys.argv[1:])
+hwm = [int(l.split()[1]) for l in open("/proc/self/status") if l.startswith("VmHWM")]
+print("SCAN_RESULT " + json.dumps({
+    "traced_peak_bytes": tracemalloc.get_traced_memory()[1],
+    "cuda_context_rss_kib": base,
+    "metrics": [float(m) for m in metrics], "n": len(names),
+    "pairs_done": scorer.pairs_done, "scan_seconds": scorer.scan_seconds,
+    "token_cache_bytes": scorer._token_cache_bytes(len(names)),
+    "peak_rss_kib": hwm[0] if hwm else resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+    "peak_rss_from": "VmHWM" if hwm else "ru_maxrss"}), flush=True)
+"""
+
+
+def hisfrag_test_argv(data, out, tag, *opts):
+    return ["--cfg", FLAGSHIP_CFG, "--data-path", data, "--mode", "test",
+            "--output", out, "--tag", tag, *(("--opts", *opts) if opts else ())]
+
+
+def scan_child(argv, kill_at_markers=None, marker_dir=None, timeout=600):
+    """``hisfrag --mode test`` in a subprocess. With ``kill_at_markers`` it
+    gets SIGKILL once that many ``.done`` markers exist in ``marker_dir``.
+    Returns (exit code, the SCAN_RESULT dict or None, output, seconds)."""
+    import glob
+    import signal
+    import threading
+
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-c", SCAN_CHILD, *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        while proc.poll() is None:
+            if time.time() - t0 > timeout:
+                proc.kill()
+                break
+            if kill_at_markers and len(glob.glob(os.path.join(
+                    marker_dir, "*.done"))) >= kill_at_markers:
+                proc.send_signal(signal.SIGKILL)
+                break
+            time.sleep(0.05)
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join()
+    result = next((json.loads(x.split("SCAN_RESULT ", 1)[1]) for x in lines
+                   if x.startswith("SCAN_RESULT ")), None)
+    return rc, result, "".join(lines), time.time() - t0
+
+
+def read_npz_slab(out_dir, n):
+    """The upper-triangle rows the assembled scan wrote as .npz blocks."""
+    import glob
+
+    slab = np.zeros((n, n), np.float16)
+    for path in glob.glob(os.path.join(out_dir, "test_rank0_rows*.npz")):
+        start = int(path.rsplit("rows", 1)[1].split(".")[0])
+        scores = np.load(path)["scores"][..., 0]
+        slab[start:start + len(scores)] = scores
+    return slab
+
+
+def phase_sharded(tmp, scan5):
+    """19a-c: the sharded test path on phase 5's corpus, the scan at N = 256
+    with the slab on disk, and a killed scan resumed at N = 128."""
+    import glob
+
+    from vit_ed_tpu_torch.hisfrag import main
+
+    card = card_line()
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    print("== phase 19a: python -m vit_ed_tpu_torch.hisfrag --mode test --opts "
+          "TPU.SHARDED_EVAL_METRICS True TPU.EVAL_SLAB_ON_DISK True, phase 5's corpus",
+          flush=True)
+    A.reset_launch_counts()
+    metrics, rows, names, scorer = main(hisfrag_test_argv(data, out, "sharded", *SHARDED_OPTS))
+    counts = {name: A.launches[name] for name in MAIN_PATH}
+    run_dir = os.path.join(out, "hisfrag20_patch16_512", "sharded")
+    n = len(names)
+    upper = read_npz_slab(os.path.join(out, "hisfrag20_patch16_512", "smoke"), n)
+    iu = np.triu_indices(n)
+    same_rows = (isinstance(rows, np.memmap) and np.array_equal(rows[iu], upper[iu])
+                 and np.array_equal(rows, rows.T))
+    same_dm = np.array_equal((1.0 - rows.astype(np.float32)).astype(np.float16), scan5["dm"])
+    csvs = glob.glob(os.path.join(run_dir, "*.csv"))
+    markers = glob.glob(os.path.join(run_dir, "*.done"))
+    print(f"  {card}: mAP {metrics[0]:.6f} Top 1 {metrics[1]:.6f} Pr@k10 {metrics[2]:.6f} "
+          f"Pr@k100 {metrics[3]:.6f} (phase 5: {[round(float(m), 6) for m in scan5['metrics']]}); "
+          f"{scorer.pairs_done} pairs in {scorer.scan_seconds:.3f}s, "
+          f"{scorer.pairs_done / scorer.scan_seconds:.1f} pairs/s (phase 5 "
+          f"{scan5['rate']:.1f}); rows equal phase 5's .npz scores bit for bit {same_rows}, "
+          f"distances equal phase 5's matrix {same_dm}; {len(markers)} .done markers, "
+          f"CSVs written {csvs}; launches {counts}", flush=True)
+    if not (same_rows and same_dm and not csvs and markers
+            and [float(m) for m in metrics] == [float(m) for m in scan5["metrics"]]):
+        raise AssertionError("the sharded test path differs from the assembled one")
+    if not all(counts[name] > 0 for name in MAIN_PATH):
+        raise AssertionError(f"the sharded scan did not launch every pair kernel: {counts}")
+    del rows
+
+    print("== phase 19b: the scan at N = 256, slab on disk, in a subprocess of the entry",
+          flush=True)
+    d256 = os.path.join(tmp, "data256")
+    t0 = time.time()
+    n256 = write_corpus(d256, writers=64, seed=7)
+    wrote = time.time() - t0
+    rc, res, log, secs = scan_child(hisfrag_test_argv(d256, out, "n256", *SHARDED_OPTS))
+    if rc != 0 or res is None:
+        print(log[-3000:])
+        raise AssertionError(f"the N = {n256} scan failed (exit {rc})")
+    dat = os.path.join(out, "hisfrag20_patch16_512", "n256", "test_rank0_slab.dat")
+    print(f"  {card}: N = {res['n']} ({wrote:.1f}s to write the JPEGs), {res['pairs_done']} "
+          f"pairs in {res['scan_seconds']:.3f}s: {res['pairs_done'] / res['scan_seconds']:.1f} "
+          f"pairs/s; token cache {res['token_cache_bytes'] / 2**30:.4f} GiB; slab "
+          f"{os.path.getsize(dat)} bytes on disk; host memory allocated from Python at its peak "
+          f"{res['traced_peak_bytes'] / 2**20:.1f} MiB (tracemalloc); peak RSS "
+          f"{res['peak_rss_kib'] / 2**20:.2f} GiB "
+          f"({res['peak_rss_from']}; {res['cuda_context_rss_kib'] / 2**20:.2f} GiB after "
+          f"importing the entry and starting CUDA); "
+          f"the subprocess took {secs:.1f}s; mAP {res['metrics'][0]:.4f}", flush=True)
+    if res["n"] != n256 or res["pairs_done"] != n256 * (n256 + 1) // 2 or not all(
+            0.0 <= m <= 1.0 for m in res["metrics"]):
+        raise AssertionError("the N = 256 scan did not cover its pairs")
+
+    print("== phase 19c: SIGKILL the scan at N = 128 after two row blocks of 16, resume, "
+          "and an uninterrupted scan", flush=True)
+    # the first 32 writers of 19b's corpus
+    d128 = os.path.join(tmp, "data128")
+    os.makedirs(os.path.join(d128, "test"))
+    for name in sorted(os.listdir(os.path.join(d256, "test")))[:128]:
+        os.link(os.path.join(d256, "test", name), os.path.join(d128, "test", name))
+    n128 = 128
+    opts = SHARDED_OPTS + ("DATA.BATCH_SIZE", "16")
+    kill_dir = os.path.join(out, "hisfrag20_patch16_512", "killed")
+    rc, res, log, secs = scan_child(hisfrag_test_argv(d128, out, "killed", *opts),
+                                    kill_at_markers=2, marker_dir=kill_dir)
+    at_kill = len(glob.glob(os.path.join(kill_dir, "*.done")))
+    if res is not None or rc != -9:
+        raise AssertionError(f"the scan was not killed mid-way (exit {rc})")
+    rc, res, log, secs2 = scan_child(hisfrag_test_argv(d128, out, "killed", *opts))
+    resumed_blocks = log.count("complete on disk")
+    if rc != 0 or res is None:
+        print(log[-3000:])
+        raise AssertionError(f"the resumed scan failed (exit {rc})")
+    _m, full, _names, ref = main(hisfrag_test_argv(d128, out, "whole", *opts))
+    killed = np.memmap(os.path.join(kill_dir, "test_rank0_slab.dat"), dtype=np.float16,
+                       mode="r", shape=(n128, n128, 1))[..., 0]
+    same = np.array_equal(killed, full)
+    print(f"  {card}: killed (SIGKILL) after {secs:.1f}s with {at_kill} "
+          f"blocks marked; the rerun skipped {resumed_blocks} and scored "
+          f"{res['pairs_done']} of {n128 * (n128 + 1) // 2} pairs in {secs2:.1f}s; the "
+          f"uninterrupted scan {ref.pairs_done / ref.scan_seconds:.1f} pairs/s; resumed slab "
+          f"equals the uninterrupted one bit for bit {same}", flush=True)
+    if not (same and at_kill >= 2 and resumed_blocks >= 2
+            and res["pairs_done"] < n128 * (n128 + 1) // 2
+            and [float(m) for m in _m] == res["metrics"]):
+        raise AssertionError("the resumed scan differs from the uninterrupted one")
+    del killed, full
+
+
+def int8_bound(m, k, n):
+    """(bound_ms, bound_by) of the int8 product: 2 M K N operations at the
+    int8 peak, or the int8 operands read and the int32 result written."""
+    t_ops = 2 * m * k * n / PEAK_INT8_OPS
+    t_bytes = (m * k + n * k + 4 * m * n) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_int8_gemm(gen):
+    """19d: the int8 GEMM at a scan chunk's shapes, card against CPU bit for
+    bit in f32 and bf16, timed against the port's bf16 Linear."""
+    from vit_ed_tpu_torch.models.layers import Linear
+
+    card = card_line()
+    print(f"== phase 19d: the int8 GEMM (ops/quant.py, torch._int_mm) at a 64-pair "
+          f"chunk's shapes, card against CPU, on {card}", flush=True)
+    rows = []
+    for m, k, n in INT8_SHAPES:
+        same = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 3).to(dtype)
+            w = torch.randn((n, k), generator=gen, device="cuda") * 0.05
+            b = torch.randn((n,), generator=gen, device="cuda") * 0.01
+            with torch.inference_mode():
+                got = Q.int8_matmul(x, w, b)
+                ref = Q.int8_matmul(x.cpu(), w.cpu(), b.cpu())
+            same.append(torch.equal(got.cpu(), ref))
+            del got, ref
+        lin = Linear(k, n).cuda()
+        with torch.inference_mode():
+            wq, sw, aw = Q.quantize_weight(lin.weight)
+            xq, _ = Q.quantize_rows(x)
+            r = {"shape": f"M={m} K={k} N={n}",
+                 "ms": timed(lambda: Q.int8_mm(xq, wq), n=10, inner=3),
+                 "int8_linear_ms": timed(lambda: Q.int8_linear(x, wq, sw, aw, lin.bias),
+                                         n=10, inner=3),
+                 "bf16_matmul_ms": timed(lambda: torch.matmul(x, lin.weight.to(x.dtype).t()),
+                                         n=10, inner=3),
+                 "bf16_linear_ms": timed(lambda: lin(x), n=10, inner=3)}
+        r["bound_ms"], r["bound_by"] = int8_bound(m, k, n)
+        r["card_equals_cpu"] = same
+        rows.append(r)
+        print(f"  {r['shape']}: card == CPU bit for bit (f32, bf16) {same}; int8 product "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}), with quantize "
+              f"and epilogue {r['int8_linear_ms']:.4f}; bf16 product {r['bf16_matmul_ms']:.4f}, "
+              f"bf16 Linear {r['bf16_linear_ms']:.4f}", flush=True)
+        if not all(same):
+            raise AssertionError(f"the int8 GEMM differs card against CPU at {r['shape']}")
+        del x, w, b, lin, xq, wq
+    torch.cuda.empty_cache()
+    # one 64-pair score_tokens_row chunk with the int8 route on: the GEMMs'
+    # launches by shape, where its device time goes (phase 4's inputs), and
+    # the GEMM kernels its int8 products ran (int8 in their names: s8, i8,
+    # imma; the profiler saw nothing of a lone product late in the run)
+    config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=None))
+    torch.manual_seed(0)
+    model = build_model(config, torch.device("cuda")).eval()
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 512, 512, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode(), Q.int8_gemms(model):
+        kv_row = model.context_kv_cache(model.encode(imgs[:1]))
+        adv = model.prepare_x2_scan(imgs[1:]).index_select(
+            0, torch.arange(64, device="cuda") % 2)
+        Q.reset_launch_counts()
+        model.score_tokens_row(kv_row, adv)
+        torch.cuda.synchronize()
+        per_chunk = dict(Q.launches_by_shape)
+        print(f"  int8 GEMMs of one 64-pair score_tokens_row chunk (M, K, N): "
+              f"{sorted(per_chunk.items())}", flush=True)
+        prof_rows = chunk_breakdown(model, kv_row, adv)
+    del model, kv_row, adv, imgs
+    torch.cuda.empty_cache()
+    names = [key for key, _t, _n in prof_rows if "gemm" in key.lower()
+             and re.search(r"(^|[^a-z])(s8|i8|imma|int8)", key.lower())]
+    print(f"  the int8 products' kernels (profiler): {names}", flush=True)
+    if not names:
+        raise AssertionError("the profiler saw no int8 kernel in the int8 chunk")
+    for r in rows:
+        m, k, n = (int(v.split("=")[1]) for v in r["shape"].split())
+        r["launches_per_chunk"] = per_chunk.get((m, k, n), 0)
+    return rows, names
+
+
+def phase_int8_scan(tmp, scan5):
+    """19e: the scan at N = 64 with TPU.INT8_SCORE, against phase 5's."""
+    from vit_ed_tpu_torch.hisfrag import main
+
+    card = card_line()
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    print("== phase 19e: python -m vit_ed_tpu_torch.hisfrag --mode test --opts "
+          "TPU.INT8_SCORE True, phase 5's corpus", flush=True)
+    A.reset_launch_counts()
+    Q.reset_launch_counts()
+    metrics, dm, names, scorer = main(hisfrag_test_argv(data, out, "int8",
+                                                        "TPU.INT8_SCORE", "True"))
+    torch.cuda.synchronize()
+    counts = {name: A.launches[name] for name in MAIN_PATH}
+    gemms = Q.launches["int8_gemm"]
+    gap = float(np.abs(dm.astype(np.float32) - scan5["dm"].astype(np.float32)).max())
+    rate = scorer.pairs_done / scorer.scan_seconds
+    print(f"  {card}: int8 {rate:.1f} pairs/s against bf16 {scan5['rate']:.1f} (phase 5); "
+          f"mAP int8 {metrics[0]:.6f} against bf16 {scan5['metrics'][0]:.6f}; max |int8 - bf16| "
+          f"score {gap:.4f} (tol 0.25); pair kernel launches {counts}, int8 GEMMs {gemms}; "
+          f"by shape (M, K, N) {sorted(Q.launches_by_shape.items())}", flush=True)
+    if not (gap < 0.25 and np.isfinite(dm.astype(np.float32)).all()):
+        raise AssertionError("int8 scores stray from bf16")
+    if not (all(counts[name] > 0 for name in MAIN_PATH) and gemms > 0):
+        raise AssertionError("the int8 scan did not launch the pair kernels and int8 GEMMs")
+    return {"rate": rate, "metrics": [float(m) for m in metrics],
+            "gemms_per_shape": dict(Q.launches_by_shape)}
+
+
+def phase_int8_eval(tmp, ckpt_path, eval15):
+    """19f: the puzzle evaluation with TPU.INT8_SCORE on one of phase 15's
+    puzzles: the 4-D kernels and the int8 GEMMs launched."""
+    import shutil
+
+    from vit_ed_tpu_torch import evaluation
+
+    print("== phase 19f: python -m vit_ed_tpu_torch.evaluation --opts TPU.INT8_SCORE True "
+          f"on phase 15's {EVAL_SUBSETS[0]}/{EVAL_FILES[0]}", flush=True)
+    data, work = os.path.join(tmp, "puzzles_int8"), os.path.join(tmp, "eval_int8_cwd")
+    os.makedirs(os.path.join(data, EVAL_SUBSETS[0]))
+    os.makedirs(work)
+    shutil.copy(os.path.join(tmp, "puzzles", EVAL_SUBSETS[0], EVAL_FILES[0]),
+                os.path.join(data, EVAL_SUBSETS[0], EVAL_FILES[0]))
+    argv = ["--cfg", EVAL_CFG, "--data-path", data, "--pretrained", ckpt_path,
+            "--output", os.path.join(tmp, "out"), "--tag", "eval_int8",
+            "--opts", "TPU.INT8_SCORE", "True"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    A.reset_launch_counts()
+    Q.reset_launch_counts()
+    try:
+        records = evaluation.main(argv)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    heads = {k: v for k, v in nonzero(A.launches).items() if k.startswith("heads_")}
+    gemms = Q.launches["int8_gemm"]
+    (rec,) = records
+    result, perfect = rec["results"]
+    acc = {k: round(float(v[0]), 4) for k, v in result.items()}
+    print(f"  {card_line()}: int8 score_dense {rec['pairs'] / rec['seconds']['score']:.1f} "
+          f"pairs/s (bf16, phase 15: {eval15['rate']:.1f}); accuracies {acc}, Perfect "
+          f"{perfect} (bf16, phase 15: {eval15['accuracies']}); 4-D launches {heads}; "
+          f"int8 GEMMs {gemms}", flush=True)
+    if not (heads.get("heads_kv_shared") and heads.get("heads_qkv") and gemms > 0
+            and np.isfinite(rec["distances"]).all()):
+        raise AssertionError("the int8 evaluation did not launch the 4-D kernels and "
+                             "int8 GEMMs")
+
+
+def phase_explain(tmp):
+    """19g: generate_relevance at full width on one pair, card against CPU,
+    and a keep_attn forward against the fused one."""
+    from vit_ed_tpu_torch.ops.explain import generate_relevance
+
+    print("== phase 19g: ops/explain.py generate_relevance at pjs-S patch16_512 (one pair, "
+          "f32), card against CPU; keep_attn against the fused forward", flush=True)
+    config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=None))
+    torch.manual_seed(config.SEED)
+    model = build_model(config).eval()
+    ds = HisFrag20Test(os.path.join(tmp, "data"), Split.TEST, transform=OneImgEval(512, crop=True))
+    x_pair = np.stack([ds[0][0], ds[5][0]])[None]
+    pjs = config.MODEL.PJS
+    args = (x_pair, pjs.PATCH_SIZE, pjs.NUM_HEADS, pjs.DEPTH, pjs.C_DEPTH)
+    t0 = time.time()
+    card = generate_relevance(model, *args, device="cuda")
+    t1 = time.time()
+    cpu = generate_relevance(model, *args, device="cpu")
+    t2 = time.time()
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print(f"  relevance {card.shape}: card {t1 - t0:.1f}s, CPU {t2 - t1:.1f}s; max |card - CPU| "
+          f"{err:.3e} of the max {np.abs(cpu).max():.4e} (tol 1e-3)", flush=True)
+    if not (card.shape == (1024, 1024) and np.isfinite(card).all() and err <= 1e-3):
+        raise AssertionError("generate_relevance disagrees card against CPU")
+
+    sd = model.state_dict()
+    kept = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=["MODEL.PJS.KEEP_ATTN", "True"]))
+    readings = {}
+    x = torch.from_numpy(np.stack([np.stack([ds[i][0], ds[j][0]]) for i, j in ((0, 5), (3, 17))]))
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        outs = []
+        for cfg in (config, kept):
+            m = build_model(cfg, torch.device("cuda")).eval()
+            m.load_state_dict(sd)
+            m.dtype = dtype
+            with torch.inference_mode():
+                outs.append(m(x.cuda()).float().cpu())
+            maps = m.attention_maps()
+            del m
+        readings[str(dtype)] = float((outs[1] - outs[0]).abs().max() / outs[0].abs().max())
+        if not readings[str(dtype)] <= tol:
+            raise AssertionError(f"keep_attn differs from the fused forward in {dtype}")
+    print(f"  keep_attn against fused logits, max |diff| / max: {readings} (tol f32 1e-3, "
+          f"bf16 5e-2); {len(maps)} maps kept, the last decoder block's "
+          f"{tuple(maps['cross_blocks.11.attn'].shape)}", flush=True)
+    if len(maps) != 36:
+        raise AssertionError("keep_attn did not keep every map")
+    torch.cuda.empty_cache()
+
+
+def phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt):
+    """Phase 19. Returns the int8 GEMM's rows."""
+    t0 = time.time()
+    phase_sharded(tmp, scan5)
+    rows, names = phase_int8_gemm(gen)
+    int8_scan = phase_int8_scan(tmp, scan5)
+    phase_int8_eval(tmp, puzzle_ckpt, eval15)
+    phase_explain(tmp)
+    print(f"  phase 19 took {time.time() - t0:.1f}s", flush=True)
+    print("  int8 GEMM rows: " + json.dumps({
+        "kernels_seen": names, "scan_launches": {
+            f"M={m} K={k} N={n}": c for (m, k, n), c in
+            int8_scan["gemms_per_shape"].items()}, "rows": rows}), flush=True)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -3798,7 +4242,7 @@ def main():
     phase_model(gen)
     with tempfile.TemporaryDirectory() as tmp:
         phase_native(tmp)
-        counts = phase_main_path(tmp)
+        counts, scan5 = phase_main_path(tmp)
         bwd_err = phase_backward_vs_plain(gen)
         train_times = phase_backward_times(gen)
         phase_gradients(tmp)
@@ -3808,10 +4252,12 @@ def main():
         phase_puzzle_model(tmp)
         puzzle_shapes, puzzle_ckpt = phase_puzzle_path(tmp)
         scan32_shapes = phase_heads_scan(tmp)
-        eval_shapes_run, eval_times, n_puzzles = phase_puzzle_eval(tmp, puzzle_ckpt, gen)
+        eval_shapes_run, eval_times, n_puzzles, eval15 = phase_puzzle_eval(
+            tmp, puzzle_ckpt, gen)
         michigan_rows = phase_michigan(tmp, gen)
         vit_rows = phase_vit(tmp, gen)
         pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
+        phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "

@@ -170,6 +170,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {port / "pajigsaw.py", port / "lr_finder.py", port / "solver_driver.py",
             port / "data" / "pajigsaw.py", port / "models" / "resnet.py",
             port / "models" / "simsiam.py"} <= set(files)
+    # the sharded test path, int8 scoring, explainability and the scripts
+    assert {port / "metrics" / "wi19_sharded.py", port / "ops" / "quant.py",
+            port / "ops" / "explain.py", port / "visualise_attentions.py",
+            port / "visualise_dataset.py"} <= set(files)
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_ed_tpu", "cv2",
               "pandas"}
     found = [(str(f.relative_to(ROOT)), name) for f in files

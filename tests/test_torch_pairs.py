@@ -111,12 +111,16 @@ def test_resume_skips_finished_blocks(setup, tmp_path):
     np.testing.assert_array_equal(stale, fresh)
 
 
-@pytest.mark.parametrize("kwargs", [{"world_size": 2}, {"slab_on_disk": True},
-                                    {"assemble": False}])
+@pytest.mark.parametrize("kwargs", [{"world_size": 2},
+                                    {"world_size": 2, "slab_on_disk": True,
+                                     "assemble": False, "out_dir": "unused"},
+                                    {"world_size": 2, "assemble": False}])
 def test_unported_options_raise(setup, kwargs):
+    """Several processes are not ported (ROADMAP queue A item 7b), with or
+    without the sharded test path's options, which one process runs
+    (tests/test_torch_sharded.py), as it runs int8 scoring
+    (tests/test_torch_quant.py)."""
     _jm, _params, model, imgs = setup
-    scorer = PairwiseScorer(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    scorer = PairwiseScorer(model, int8=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7b"):
         scorer.score_dataset(ArrayDataset(imgs), batch_size=4, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PairwiseScorer(model, int8=True)

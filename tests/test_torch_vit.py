@@ -307,10 +307,14 @@ def test_build_model_types_and_unported_options():
     with pytest.raises(NotImplementedError, match="Unknown model"):
         build_model(config)
     config.MODEL.TYPE = "vit"
+    # int8 scoring is a switch of the scorer: the model is the same
     config.TPU.INT8_SCORE = True
-    with pytest.raises(NotImplementedError, match="INT8_SCORE"):
-        build_model(config)
+    assert isinstance(build_model(config), ViT)
     config.TPU.INT8_SCORE = False
+    config.MODEL.PJS.MOE.EXPERTS = 4
+    with pytest.raises(NotImplementedError, match="MODEL.PJS.MOE.EXPERTS"):
+        build_model(config)
+    config.MODEL.PJS.MOE.EXPERTS = 0
     config.TPU.FAST_GELU = True
     assert build_model(config).blocks[0].mlp.act.__name__ == "gelu_tanh"
     config.TPU.FAST_GELU = False

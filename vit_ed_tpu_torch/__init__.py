@@ -11,13 +11,18 @@ of ViT-ED and its mined-pair training
 (``python -m vit_ed_tpu_torch.hisfrag --mode train|eval|test``), the DIV2K
 puzzle-pair entry (``python -m vit_ed_tpu_torch.main``), puzzle evaluation
 with the Paikin-Tal solver (``python -m vit_ed_tpu_torch.evaluation``), and
-their input pipeline in native C++.
+their input pipeline in native C++; every other root entry of the JAX
+package (``michigan``, ``geshame_evaluation``, ``main_vit``,
+``hisfrag_vit``, ``pajigsaw``, ``lr_finder``, ``solver_driver``) and the
+two scripts that import it (``visualise_attentions``,
+``visualise_dataset``).
 
   device     -- ``resolve_device``: CUDA unless the caller asks for the CPU
   config     -- YAML config tree (same keys as vit_ed_tpu.config)
   ops        -- the attention CUDA kernels (pair and 4-D, forward and
                 backward) + plain versions, bf16 GELU with its closed-form
-                derivative, the pair gather with a fixed-order backward
+                derivative, the pair gather with a fixed-order backward,
+                dynamic int8 GEMMs for scoring, attention explainability
   models     -- ViT-ED (timm key layout), JAX-param conversion, factory
   parallel   -- the single-process pair scorer (row-sharded and
                 mixed-chunk schedules, ``score_dense`` for puzzle pieces)
@@ -29,7 +34,8 @@ their input pipeline in native C++.
   native     -- C++ built with g++ at first use (ctypes): the input
                 pipeline (decode, warps, jitter, blur, fused
                 crop/resize/normalize) and the solver's placement core
-  metrics    -- wi19 retrieval and classification metrics
+  metrics    -- wi19 retrieval (whole or from row slabs) and
+                classification metrics
 """
 
 __version__ = "0.1.0"

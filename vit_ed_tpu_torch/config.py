@@ -325,12 +325,12 @@ def default_config() -> ConfigNode:
 
     # The JAX package's deployment knobs. The port reads CLS_SHORTCUT,
     # DEVICE_NORMALIZE, USE_PALLAS_ATTENTION (must stay True: the port
-    # always runs its kernel on the card), INT8_SCORE, MAX_TRAIN_PAIRS,
-    # FAST_GELU and PEAK_TFLOPS (the MFU line's peak where set; the JAX
-    # default is a TPU's, the port's 0 reads the card's own); models/build.py
-    # raises for the parallelism, MoE and int8 switches, which
-    # are not ported yet (ROADMAP). The rest are kept so that every YAML
-    # of configs/ loads.
+    # always runs its kernel on the card), INT8_SCORE, SHARDED_EVAL_METRICS,
+    # EVAL_SLAB_ON_DISK, MAX_TRAIN_PAIRS, FAST_GELU and PEAK_TFLOPS (the MFU
+    # line's peak where set; the JAX default is a TPU's, the port's 0 reads
+    # the card's own); models/build.py raises for the parallelism and MoE
+    # switches, which are not ported yet (ROADMAP queue A item 12). The
+    # rest are kept so that every YAML of configs/ loads.
     c.TPU = ConfigNode()
     c.TPU.MESH_SHAPE = []
     c.TPU.USE_PALLAS_ATTENTION = True

@@ -78,6 +78,11 @@ def normalize(arr: np.ndarray, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)) -> np.
     return (arr - mean) / std
 
 
+def unnormalize(arr: np.ndarray, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)) -> np.ndarray:
+    """The inverse of ``normalize`` (reference UnNormalize)."""
+    return arr * np.asarray(std, np.float32) + np.asarray(mean, np.float32)
+
+
 def as_sample_array(image) -> np.ndarray:
     """Dataset output dtype policy: uint8 arrays (the ``emit_u8`` wire, which
     the model normalizes on the device) pass through; everything else
@@ -291,6 +296,26 @@ def random_crop(img: Image.Image, size, pad_if_needed=False, fill=0,
     left = r.randint(0, w - tw)
     top = r.randint(0, h - th)
     return img.crop((left, top, left + tw, top + th))
+
+
+class RandomSizedCrop:
+    """A random target size of at least ``min_width`` x ``min_height``,
+    then a random crop to it (reference transforms.py:61-79)."""
+
+    def __init__(self, min_width, min_height, pad_if_needed=False, fill=0):
+        self.min_width = min_width
+        self.min_height = min_height
+        self.pad_if_needed = pad_if_needed
+        self.fill = fill
+
+    def __call__(self, img: Image.Image) -> Image.Image:
+        width, height = img.size
+        if self.min_width < img.width:
+            width = random.randint(self.min_width, img.width)
+        if self.min_height < img.height:
+            height = random.randint(self.min_height, img.height)
+        return random_crop(img, (height, width), pad_if_needed=self.pad_if_needed,
+                           fill=self.fill)
 
 
 def rotation_matrix(center: Tuple[float, float], angle: float,

@@ -20,8 +20,14 @@ improves) under ``<output>/<MODEL.NAME>/<tag>``; a rerun resumes from the
 newest one. ``--mode eval`` scores the val split (held-out writers inside
 ``train/``), ``--mode test`` the test split: both print ``mAP ... Top 1 ...
 Pr@k10 ... Pr@k100``, and test writes ``distance_matrix_rank0.csv`` — the
-same lines and file as the JAX entry. Runs on the CUDA card unless
-``--device cpu`` is given.
+same lines and file as the JAX entry. With ``TPU.SHARDED_EVAL_METRICS``
+test never assembles the N x N matrix: it scores complete rows
+(``assemble=False``; on an ``np.memmap`` under the output directory with
+``TPU.EVAL_SLAB_ON_DISK``, resumable by block markers), reduces them in
+blocks of 2,048 rows to wi19 partial sums, logs the metrics and writes no
+CSV, as the JAX entry's ``_test_sharded``. ``TPU.INT8_SCORE`` scores with
+the blocks' GEMMs in int8. Runs on the CUDA card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from vit_ed_tpu_torch.data.hisfrag import HisFrag20Test, Split
 from vit_ed_tpu_torch.data.loader import DataLoader
 from vit_ed_tpu_torch.data.samplers import MPerClassSampler
 from vit_ed_tpu_torch.metrics import get_metrics
+from vit_ed_tpu_torch.metrics.wi19_sharded import merge_partials, row_partials
 from vit_ed_tpu_torch.ops.gather import gather_rows
 from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
 from vit_ed_tpu_torch.train.engine import Trainer
@@ -207,20 +214,26 @@ class HisfragTrainer(Trainer):
         return loss_fn
 
     # ----------------------------------------------------------------- eval
-    def validate_dataloader(self, split: Split, remove_cache_file=False):
-        """Scan ``split``: (float16 distance matrix, sample names, scorer)."""
+    def _eval_set(self, split: Split):
+        """The eval dataset of ``split`` and a scorer for it."""
         config = self.config
         dataset = HisFrag20Test(
             config.DATA.DATA_PATH, split,
             transform=self.get_transforms()[split.value],
             val_n_items_per_writer=config.DATA.EVAL_N_ITEMS_PER_CATEGORY)
+        scorer = PairwiseScorer(self.model, num_outputs=1,
+                                pair_chunk=config.DATA.TEST_BATCH_SIZE,
+                                int8=config.TPU.INT8_SCORE)
+        return dataset, scorer
+
+    def validate_dataloader(self, split: Split, remove_cache_file=False):
+        """Scan ``split``: (float16 distance matrix, sample names, scorer)."""
+        config = self.config
+        dataset, scorer = self._eval_set(split)
         if remove_cache_file:
             for f in glob.glob(os.path.join(config.OUTPUT,
                                             f"{split.value}_rank*.npz")):
                 os.unlink(f)
-        scorer = PairwiseScorer(self.model, num_outputs=1,
-                                pair_chunk=config.DATA.TEST_BATCH_SIZE,
-                                int8=config.TPU.INT8_SCORE)
         sim = scorer.score_dataset(dataset, batch_size=config.DATA.BATCH_SIZE,
                                    logger=self.logger, out_dir=config.OUTPUT,
                                    tag=split.value,
@@ -242,13 +255,51 @@ class HisfragTrainer(Trainer):
 
     def test(self):
         """Score the test split and write the distance matrix. Returns
-        ``(metrics, distance_matrix, names, scorer)``."""
+        ``(metrics, distance_matrix, names, scorer)``; with
+        ``TPU.SHARDED_EVAL_METRICS`` ``_test_sharded``'s."""
+        if self.config.TPU.SHARDED_EVAL_METRICS:
+            return self._test_sharded()
+        if self.config.TPU.EVAL_SLAB_ON_DISK:
+            self.logger.warning(
+                "TPU.EVAL_SLAB_ON_DISK has no effect without "
+                "TPU.SHARDED_EVAL_METRICS (the assembled test path "
+                "builds the N x N matrix)")
         distance_matrix, names, scorer = self.validate_dataloader(Split.TEST)
         metrics = self._metrics(distance_matrix, names)
         write_distance_csv(
             os.path.join(self.config.OUTPUT, "distance_matrix_rank0.csv"),
             distance_matrix, names)
         return metrics, distance_matrix, names, scorer
+
+    def _test_sharded(self):
+        """``TPU.SHARDED_EVAL_METRICS``: score complete rows without
+        assembling the N x N matrix (on a memmap with
+        ``TPU.EVAL_SLAB_ON_DISK``), reduce them in blocks of 2,048 rows to
+        wi19 partial sums and merge them; no CSV. Each block's distances go
+        through the assembled path's chain, float32 then float16, element
+        for element, so that ties rank the same. Returns ``(metrics, rows,
+        names, scorer)``, ``rows`` the [N, N] float16 scores."""
+        config = self.config
+        dataset, scorer = self._eval_set(Split.TEST)
+        rows, row_range = scorer.score_dataset(
+            dataset, batch_size=config.DATA.BATCH_SIZE, logger=self.logger,
+            out_dir=config.OUTPUT, tag=Split.TEST.value,
+            num_workers=config.DATA.NUM_WORKERS, assemble=False,
+            slab_on_disk=config.TPU.EVAL_SLAB_ON_DISK)
+        names = [os.path.splitext(os.path.basename(s))[0] for s in dataset.samples]
+        labels = np.asarray(list_to_idx(names, lambda x: x.split("_")[0]))
+        parts = []
+        for a in range(0, rows.shape[0], 2048):
+            dist = (1.0 - rows[a:a + 2048].astype(np.float32)).astype(np.float16)
+            lo = row_range.start + a
+            parts.append(row_partials(dist.astype(np.float32), labels,
+                                      row_labels=labels[lo:lo + dist.shape[0]]))
+        part = {k: sum(p[k] for p in parts) for k in parts[0]}
+        metrics = merge_partials([part])
+        m_ap, top1, pr_k10, pr_k100 = metrics
+        self.logger.info(f"mAP {m_ap:.3f}\tTop 1 {top1:.3f}\t"
+                         f"Pr@k10 {pr_k10:.3f}\tPr@k100 {pr_k100:.3f}")
+        return metrics, rows, names, scorer
 
     def validate(self) -> float:
         """1 - mAP of a fresh scan of the val split."""

@@ -5,7 +5,9 @@ every pair path), the plain ViT (the embedding model of the triplet
 baselines), and the BatchNorm baselines ``ss`` / ``ss2`` / ``ss2ce``
 (SimSiam, models/simsiam.py) and ``resnet`` / ``mixconv``
 (models/resnet.py). The options not ported yet raise NotImplementedError
-naming the ROADMAP item that ports them.
+naming the ROADMAP item that ports them. ``TPU.INT8_SCORE`` is a scoring
+switch, read by the entries that score (the scorer quantizes the blocks'
+GEMMs while it scores), and builds the same model.
 """
 
 from __future__ import annotations
@@ -29,15 +31,13 @@ def _unported(config):
     """(switched-on option, ROADMAP item) pairs this slice does not run."""
     pjs, tpu = config.MODEL.PJS, config.TPU
     checks = [
-        (pjs.KEEP_ATTN, "MODEL.PJS.KEEP_ATTN", "queue A item 10 (ops/explain.py)"),
-        (pjs.MOE.EXPERTS > 0, "MODEL.PJS.MOE.EXPERTS", "queue A item 12"),
-        (tpu.INT8_SCORE, "TPU.INT8_SCORE", "queue A item 9 (ops/quant.py)"),
-        (tpu.SEQ_PARALLEL, "TPU.SEQ_PARALLEL", "queue A item 12"),
-        (tpu.RING_ATTN, "TPU.RING_ATTN", "queue A item 12"),
-        (tpu.FSDP, "TPU.FSDP", "queue A item 12"),
-        (tpu.TENSOR_PARALLEL, "TPU.TENSOR_PARALLEL", "queue A item 12"),
-        (tpu.EXPERT_PARALLEL, "TPU.EXPERT_PARALLEL", "queue A item 12"),
-        (tpu.PIPELINE_STAGES > 1, "TPU.PIPELINE_STAGES", "queue A item 12"),
+        (pjs.MOE.EXPERTS > 0, "MODEL.PJS.MOE.EXPERTS", "queue A item 12a (MoE)"),
+        (tpu.SEQ_PARALLEL, "TPU.SEQ_PARALLEL", "queue A item 12b"),
+        (tpu.RING_ATTN, "TPU.RING_ATTN", "queue A item 12b"),
+        (tpu.FSDP, "TPU.FSDP", "queue A item 12b"),
+        (tpu.TENSOR_PARALLEL, "TPU.TENSOR_PARALLEL", "queue A item 12b"),
+        (tpu.EXPERT_PARALLEL, "TPU.EXPERT_PARALLEL", "queue A item 12b"),
+        (tpu.PIPELINE_STAGES > 1, "TPU.PIPELINE_STAGES", "queue A item 12b"),
         (not tpu.USE_PALLAS_ATTENTION, "TPU.USE_PALLAS_ATTENTION False",
          "none: the port always runs its attention kernel on the card"),
     ]
@@ -99,5 +99,6 @@ def build_model(config, device=None) -> nn.Module:
         # the JAX factory feeds MODEL.DROP_RATE to the head dropout only
         drop_rate=config.MODEL.DROP_RATE,
         fast_gelu=config.TPU.FAST_GELU,
+        keep_attn=pjs.KEEP_ATTN,
     )
     return model.to(device) if device is not None else model

@@ -20,11 +20,20 @@ use; the chosen rounding points, on bf16 activations:
 - residual adds and LayerScale in bf16, as flax does on bf16 streams.
 
 In float32 every one of these is the plain float32 computation.
+
+Two switches of the JAX package's layers are ported:
+
+- the int8 route of ``Linear`` (``ops/quant.py``), which a scorer turns on
+  for the blocks of its model while it scores (``TPU.INT8_SCORE``);
+- ``keep_attn`` of the attention modules (``MODEL.PJS.KEEP_ATTN``): the
+  explicit probabilities of ``ops.attention.attention_probs`` instead of the
+  fused kernels, each call's [B, H, Sq, Sk] map kept in the module's
+  ``attn_map`` (flax sows it into ``intermediates``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,24 +41,31 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vit_ed_tpu_torch.ops.attention import (
+    attention_probs,
     fused_attention_packed_kv,
     fused_attention_packed_kv_shared,
     fused_attention_packed_qkv,
     fused_attention_packed_qkv_cls,
 )
 from vit_ed_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
+from vit_ed_tpu_torch.ops.quant import int8_linear
 
 
 class Linear(nn.Module):
-    """Dense layer with flax's bf16 rounding (see module docstring)."""
+    """Dense layer with flax's bf16 rounding (see module docstring). While
+    ``int8_weight`` holds the quantized weight
+    (``ops.quant.int8_gemms``), the layer is the dynamic int8 GEMM."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         nn.init.trunc_normal_(self.weight, std=0.02)
+        self.int8_weight: Optional[Tuple[torch.Tensor, ...]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_weight is not None:
+            return int8_linear(x, *self.int8_weight, self.bias)
         y = F.linear(x, self.weight.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
@@ -172,12 +188,34 @@ def _scale(dim: int, init_values: Optional[float]) -> nn.Module:
     return LayerScale(dim, init_values) if init_values else nn.Identity()
 
 
-class Attention(nn.Module):
-    """Multi-head self-attention on the fused qkv projection."""
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, n, c = x.shape
+    return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
 
-    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+
+def _explicit_attention(mod: nn.Module, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The JAX package's explicit path on the packed layout: float32
+    probabilities (kept in ``mod.attn_map``), rounded to the value dtype
+    for the PV product; [B, Sq, C] out."""
+    qh, kh, vh = (_split_heads(t, mod.num_heads) for t in (q, k, v))
+    attn = attention_probs(qh, kh)
+    mod.attn_map = attn
+    out = torch.matmul(attn.to(vh.dtype), vh)
+    b, h, n, d = out.shape
+    return out.transpose(1, 2).reshape(b, n, h * d)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention on the fused qkv projection; with
+    ``keep_attn`` on the explicit probabilities (module docstring)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 keep_attn: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.keep_attn = keep_attn
+        self.attn_map: Optional[torch.Tensor] = None
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
@@ -186,7 +224,11 @@ class Attention(nn.Module):
         only, [B, 1, C]; its keys and values still cover the whole
         sequence (the pair scan's last-decoder-block short-circuit)."""
         qkv = self.qkv(x)
-        if cls_only:
+        if self.keep_attn:
+            out = _explicit_attention(self, *qkv.chunk(3, dim=-1))
+            if cls_only:
+                out = out[:, :1]
+        elif cls_only:
             out = fused_attention_packed_qkv_cls(qkv, self.num_heads)
         else:
             out = fused_attention_packed_qkv(qkv, self.num_heads)
@@ -198,9 +240,12 @@ class CrossAttention(nn.Module):
     ``kv_for`` (the context-only fused K/V projection, computed once per
     x1 row by the pair scan) and ``attend_kv`` / ``attend_kv_shared``."""
 
-    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 keep_attn: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.keep_attn = keep_attn
+        self.attn_map: Optional[torch.Tensor] = None
         self.q = Linear(dim, dim, bias=qkv_bias)
         self.kv = Linear(dim, dim * 2, bias=qkv_bias)
         self.proj = Linear(dim, dim)
@@ -210,12 +255,17 @@ class CrossAttention(nn.Module):
 
     def attend_kv(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         """Attention against a per-pair precomputed kv [B, Sk, 2C]."""
+        if self.keep_attn:
+            return self.proj(_explicit_attention(self, self.q(x), *kv.chunk(2, dim=-1)))
         return self.proj(fused_attention_packed_kv(self.q(x), kv,
                                                    self.num_heads))
 
     def attend_kv_shared(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         """``attend_kv`` where ONE context kv [1, Sk, 2C] serves the whole
-        batch (the row-sharded O(N^2) scan chunk)."""
+        batch (the row-sharded O(N^2) scan chunk); with ``keep_attn`` the
+        explicit path on the broadcast kv, as in the JAX package."""
+        if self.keep_attn:
+            return self.attend_kv(x, kv.expand(x.shape[0], -1, -1))
         return self.proj(fused_attention_packed_kv_shared(self.q(x), kv,
                                                           self.num_heads))
 
@@ -228,10 +278,11 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, init_values: Optional[float] = None,
-                 drop_path: float = 0.0, fast_gelu: bool = False):
+                 drop_path: float = 0.0, fast_gelu: bool = False,
+                 keep_attn: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, keep_attn)
         self.ls1 = _scale(dim, init_values)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
@@ -250,15 +301,16 @@ class CrossBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, init_values: Optional[float] = None,
-                 drop_path: float = 0.0, fast_gelu: bool = False):
+                 drop_path: float = 0.0, fast_gelu: bool = False,
+                 keep_attn: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, keep_attn)
         self.ls1 = _scale(dim, init_values)
         self.drop_path1 = DropPath(drop_path)
         self.norm_cross = LayerNorm(dim)
         self.norm_context = LayerNorm(dim)
-        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias)
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias, keep_attn)
         self.ls_cross = _scale(dim, init_values)
         self.drop_path_cross = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
@@ -312,7 +364,8 @@ class ViTBase(nn.Module):
     embedding. ``dropouts`` are the position, projection and attention
     dropout rates: no config key reaches them (the JAX factory passes
     ``MODEL.DROP_RATE`` to the head dropout only), they are taken as
-    arguments, and training with a non-zero one raises (ROADMAP)."""
+    arguments, and training with a non-zero one raises (ROADMAP queue A
+    item 8)."""
 
     def __init__(self, dtype: torch.dtype, use_checkpoint: bool, **dropouts: float):
         super().__init__()

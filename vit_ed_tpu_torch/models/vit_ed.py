@@ -25,7 +25,12 @@ its kernels or raise. In training mode stochastic depth draws from
 (``TRAIN.USE_CHECKPOINT``, flax ``remat`` in the JAX package) with the
 generator rewound so that the recomputed masks are the same. The other
 dropouts are 0 in every config of the repo; they are taken as arguments
-and training with a non-zero one raises (ROADMAP).
+and training with a non-zero one raises (ROADMAP queue A item 8).
+
+``keep_attn`` (``MODEL.PJS.KEEP_ATTN``) runs every attention on explicit
+probabilities and keeps each module's map (``attention_maps``), as the JAX
+model sows them; it also turns the CLS short-circuit off, since the maps
+cover every row.
 """
 
 from __future__ import annotations
@@ -58,7 +63,8 @@ class ViTED(ViTBase):
                  dtype: torch.dtype = torch.float32,
                  use_checkpoint: bool = False, drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0, fast_gelu: bool = False):
+                 attn_drop_rate: float = 0.0, fast_gelu: bool = False,
+                 keep_attn: bool = False):
         super().__init__(dtype, use_checkpoint, pos_drop_rate=pos_drop_rate,
                          proj_drop_rate=proj_drop_rate,
                          attn_drop_rate=attn_drop_rate)
@@ -71,6 +77,7 @@ class ViTED(ViTBase):
         # the last decoder block (the same function; False re-runs the
         # full last block, as the JAX TPU.CLS_SHORTCUT switch does)
         self.cls_shortcut = cls_shortcut
+        self.keep_attn = keep_attn
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
         self.cls_token = nn.Parameter(torch.randn(1, 1, embed_dim) * 1e-6)
@@ -81,11 +88,11 @@ class ViTED(ViTBase):
         dpr_cross = torch.linspace(0, drop_path_rate, c_depth).tolist()
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values, dpr[i],
-                  fast_gelu)
+                  fast_gelu, keep_attn)
             for i in range(depth))
         self.cross_blocks = nn.ModuleList(
             CrossBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values,
-                       dpr_cross[i], fast_gelu)
+                       dpr_cross[i], fast_gelu, keep_attn)
             for i in range(c_depth))
         self.norm = LayerNorm(embed_dim)
         self.head_drop = Dropout(drop_rate)
@@ -126,8 +133,21 @@ class ViTED(ViTBase):
         return self.norm(self._run(self.cross_blocks[-1].cls_call, x2_tokens,
                                    x1_feats))
 
+    @property
+    def _cls_last(self) -> bool:
+        """The last decoder block computes its CLS row only (not under
+        ``keep_attn``, whose maps cover every row)."""
+        return self.cls_shortcut and not self.keep_attn
+
+    def attention_maps(self) -> dict:
+        """{module name: its last [B, H, Sq, Sk] map} under ``keep_attn``
+        (``blocks.i.attn``, ``cross_blocks.i.attn``,
+        ``cross_blocks.i.cross_attn``)."""
+        return {name: m.attn_map for name, m in self.named_modules()
+                if getattr(m, "attn_map", None) is not None}
+
     def _head_scores(self, x1_feats: torch.Tensor, x2_tokens: torch.Tensor) -> torch.Tensor:
-        part = self.cross_part_cls if self.cls_shortcut else self.cross_part
+        part = self.cross_part_cls if self._cls_last else self.cross_part
         return self.forward_head(part(x1_feats, x2_tokens))
 
     # ---------------------------------------------------------------- heads
@@ -156,7 +176,7 @@ class ViTED(ViTBase):
         block i's cross-attention + MLP."""
         blocks = self.cross_blocks
         for i, blk in enumerate(blocks):
-            last = i == len(blocks) - 1 and self.cls_shortcut
+            last = i == len(blocks) - 1 and self._cls_last
             if i > 0:
                 x = blk.cls_self_part(x) if last else blk.self_part(x)
             elif last:

@@ -111,6 +111,18 @@ def _count_launch(name: str, *shape: int) -> None:
     launches_by_shape[(name, *shape)] = launches_by_shape.get((name, *shape), 0) + 1
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """The explicit attention matrix for ``keep_attn`` and explainability
+    (``vit_ed_tpu/ops/attention.py::attention_probs``, plain XLA there):
+    q [B, H, Sq, D], k [B, H, Sk, D] -> float32 softmax [B, H, Sq, Sk] of
+    the float32 logits times ``scale`` (default 1 / sqrt(D))."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return torch.softmax(logits * scale, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
