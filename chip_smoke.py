@@ -185,6 +185,37 @@ nothing from the JAX package. Phases, each printing its own lines:
     (g) ``ops/explain.py``'s ``generate_relevance`` at full width on one
     pair, f32 card against CPU (1e-3 of the max), and ``keep_attn``
     forwards against fused ones (f32 1e-3, bf16 5e-2 of the max).
+20. the serving tier at pjs-S patch16_512 bf16 (weights from seed 0): the
+    host cost per launch of the pair forward through its registered operator
+    (``torch.ops.vit_ed.pair_forward``) against the direct launch; (a) the six
+    stages exported on the card with a symbolic batch (``serve.export_scorer``:
+    seconds, the bundle's bytes, the weights stored once); (b) the ``pair``
+    stage replayed at B = 1, 7 and 64 against the live model (bit equality,
+    max |diff| within 2e-3, the replay's launches equal to the live
+    forward's: 23 qkv, 1 qkv_cls, 12 kv); (c) ``serve.scan_pairs`` over phase
+    5's corpus against phase 5's matrix (1e-2), pairs/s beside phase 5's;
+    (d) ``serve.BundleServer`` on localhost, 8 client threads x 16 requests of
+    1-4 pairs, on the float32 wire (``pair``) and the uint8 one
+    (``pair_u8``): requests/s, pairs/s, device calls against requests, p50 /
+    p99 latency, responses against a direct replay (1e-2); (e) ``python -m
+    vit_ed_tpu_torch.export_serving --batch-sizes 8,64 --verify``; (f)
+    ``python -m vit_ed_tpu_torch.serve --bundle <(a)'s bundle>`` in a child
+    process started with (e): one ``/v1/score`` against the live model;
+21. MoE on one card: ``configs/scale/hisfrag20_pjsL_moe_hybrid.yaml``
+    without its mesh and its TP / SP / EP / FSDP switches (pjs-L: embed 1,024,
+    16 heads x 64, 24 + 24 blocks, 8 experts on every second encoder block,
+    top-2, jitter 0.1; 1.41 B parameters), bf16: (a) 5 updates of 8 images
+    (phase 9's corpus) through the hisfrag trainer's step at full depth
+    (step and device ms, peak memory, the MFU line, the aux terms, every
+    pair kernel forward and backward launched, one step broken down as in
+    phase 9), then ``python -m
+    vit_ed_tpu_torch.hisfrag --mode train`` at 2 + 2 blocks (one epoch, both
+    validates, the checkpoints); (b) a dense checkpoint from a seed loaded
+    with ``--pretrained`` into the MoE configuration: every expert equal to
+    its block's fc1 / fc2, the routers at their init; (c) its ``pair`` stage
+    exported and replayed as in 20(b). The entry, the upcycling and the
+    export run at 2 + 2 blocks: at full depth each checkpoint of the entry
+    would write ~17 GB.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -195,6 +226,7 @@ kernels' numbers; the last line is the result JSON.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -4217,6 +4249,468 @@ def phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the serving tier (phase 20) and MoE on one card (phase 21)
+# ---------------------------------------------------------------------------
+
+# one pair forward at depth 12 + 12 with the CLS short-circuit: 12 encoder
+# and 11 decoder self-attentions, the CLS row's, and 12 cross-attentions
+PAIR_LAUNCHES = {"qkv": 23, "qkv_cls": 1, "kv": 12}
+SERVE_BATCHES = (1, 7, 64)
+SERVE_THREADS, SERVE_REQUESTS = 8, 16     # client threads x requests of 1-4 pairs
+MOE_CFG = os.path.join(ROOT, "configs", "scale", "hisfrag20_pjsL_moe_hybrid.yaml")
+# the one-card configuration: the file with its mesh and its TP / SP / EP /
+# FSDP switches turned off; every width kept
+MOE_ONE_CARD = ("TPU.MESH_SHAPE", "[]", "TPU.MESH_AXES", "[]",
+                "TPU.TENSOR_PARALLEL", "False", "TPU.SEQ_PARALLEL", "False",
+                "TPU.EXPERT_PARALLEL", "False", "TPU.FSDP", "False")
+MOE_BATCH = 8           # images per update: what fits pjs-L MoE on one card
+MOE_STEPS = 5
+# the entry, the upcycling and the export at 2 + 2 blocks (the bank on
+# encoder block 1): the full depth's checkpoint would write ~17 GB twice
+MOE_SHORT = ("MODEL.PJS.DEPTH", "2", "MODEL.PJS.C_DEPTH", "2")
+
+
+def dispatch_cost(gen):
+    """Host microseconds per call of the pair forward, straight and through
+    the registered operator (``torch.ops.vit_ed.pair_forward``), at a shape
+    whose kernel is shorter than its launch (CLS row, B = 1): the
+    dispatcher's cost per launch, read on the host clock over 500 calls."""
+    qkv = torch.randn((1, 1025, 3 * C), generator=gen, device="cuda").bfloat16()
+    scale = 1.0 / math.sqrt(D)
+    calls = {"direct": lambda: A._forward("qkv_cls", (qkv,), H, scale),
+             "operator": lambda: A.pair_forward_op([qkv], "qkv_cls", H, scale)}
+    if not torch.equal(calls["direct"](), calls["operator"]()):
+        raise AssertionError("the operator and the direct launch differ")
+    us = {}
+    for _ in range(2):                   # the second round is the reading
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            torch.cuda.synchronize()
+            us[name] = (time.perf_counter() - t0) / 500 * 1e6
+    print(f"  dispatch per launch (qkv_cls, B=1, 500 calls, host clock): direct "
+          f"{us['direct']:.1f} us, through torch.ops.vit_ed.pair_forward "
+          f"{us['operator']:.1f} us: +{us['operator'] - us['direct']:.1f} us per "
+          f"launch", flush=True)
+    return us
+
+
+def replay_vs_live(model, scorer, stage, x, want=None):
+    """One replay of ``stage`` against the live forward on ``x``: bit
+    equality, max |diff|, the launches of each (reset before, read after)
+    and their device ms (CUDA events)."""
+    runs = {}
+    for name, fn in (("live", lambda: model(x)), ("replay", lambda: scorer(stage, x))):
+        A.reset_launch_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode():
+            a.record()
+            out = fn()
+            b.record()
+        torch.cuda.synchronize()
+        runs[name] = (out, nonzero(A.launches), a.elapsed_time(b))
+    (live, n_live, ms_live), (got, n_got, ms_got) = runs["live"], runs["replay"]
+    diff = float((got.float() - live.float()).abs().max())
+    equal = torch.equal(got, live)
+    print(f"  {stage} B={x.shape[0]}: replay {'equal to' if equal else 'differs from'} "
+          f"the live forward bit for bit (max |diff| {diff:.3e}, bound 2e-3); "
+          f"{ms_got:.2f} ms replay / {ms_live:.2f} ms live (first-call device "
+          f"time); launches replay {n_got} live {n_live}", flush=True)
+    if n_got != n_live or (want is not None and n_got != want):
+        raise AssertionError(f"the replay's launches {n_got} are not the live "
+                             f"forward's {n_live} (expected {want})")
+    if not (diff <= 2e-3 and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{stage} replay differs from the live forward by {diff}")
+    return {"equal": equal, "max_abs_diff": diff}
+
+
+def serve_load(url, stage, xs, threads=SERVE_THREADS, n=SERVE_REQUESTS):
+    """``threads`` clients x ``n`` requests each (request i of a thread sends
+    ``xs[i % len(xs)]``) -> (per-request seconds, wall seconds, pairs,
+    the responses of the first thread)."""
+    import threading
+
+    from vit_ed_tpu_torch.serve import ServeClient
+
+    lat, first, errors = [], {}, []
+    lock = threading.Lock()
+
+    def client(t):
+        c = ServeClient(url, timeout=600)
+        for i in range(n):
+            x = xs[(i + t) % len(xs)]
+            t0 = time.perf_counter()
+            try:
+                out = c.stage(stage, x)
+            except Exception as e:  # noqa: BLE001 — raised below, after join
+                errors.append(e)
+                return
+            with lock:
+                lat.append(time.perf_counter() - t0)
+                if t == 0:
+                    first[(i + t) % len(xs)] = out
+
+    workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    pairs = sum(len(xs[(i + t) % len(xs)]) for t in range(threads) for i in range(n))
+    return np.asarray(lat), wall, pairs, first
+
+
+def phase_serve(tmp, scan5, gen):
+    """Phase 20. The serving tier at pjs-S patch16_512 bf16, weights from a
+    seed."""
+    from vit_ed_tpu_torch import export_serving
+    from vit_ed_tpu_torch.serve import BundleServer, export_scorer, load_scorer, scan_pairs
+
+    print("== phase 20: the serving tier (vit_ed_tpu_torch.serve) at pjs-S "
+          "patch16_512, bf16, weights from seed 0", flush=True)
+    t_phase = time.time()
+    res = {"dispatch_us": dispatch_cost(gen)}
+    config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=None))
+    torch.manual_seed(config.SEED)
+    model = build_model(config, torch.device("cuda")).eval()
+
+    # (a) every stage, symbolic batch, exported on the card
+    out = os.path.join(tmp, "bundle")
+    t0 = time.time()
+    meta = export_scorer(model, None, out)
+    res["export_s"] = time.time() - t0
+    sizes = {f: os.path.getsize(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+    t0 = time.time()
+    scorer = load_scorer(out)
+    res["load_s"] = time.time() - t0
+    res["bundle_bytes"] = sum(sizes.values())
+    print(f"  (a) exported {sorted(meta['stages'])} on {meta['stages']['pair'][0]['device']} "
+          f"in {res['export_s']:.1f}s; bundle {res['bundle_bytes'] / 2**20:.1f} MiB: "
+          + ", ".join(f"{f} {s / 2**20:.2f}" for f, s in sizes.items())
+          + f" MiB; loaded in {res['load_s']:.1f}s", flush=True)
+    if sizes["weights.pt"] < 0.9 * res["bundle_bytes"]:
+        raise AssertionError("the artifacts carry weights of their own")
+
+    # (b) the pair stage replayed against the live model
+    res["pair"] = {}
+    for b in SERVE_BATCHES:
+        x = torch.randn((b, 2, 512, 512, 3), generator=gen, device="cuda")
+        res["pair"][b] = replay_vs_live(model, scorer, "pair", x, PAIR_LAUNCHES)
+        del x
+    torch.cuda.empty_cache()
+
+    # (c) the headless scan over phase 5's corpus against phase 5's matrix
+    ds = HisFrag20Test(os.path.join(tmp, "data"), Split.TEST,
+                       transform=OneImgEval(512, crop=True))
+    imgs = np.stack([ds[i][0] for i in range(len(ds))])
+    n = len(imgs)
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sim = scan_pairs(scorer, imgs, batch_size=64)
+    secs = time.time() - t0
+    counts = nonzero(A.launches)
+    gap = float(np.abs((1.0 - sim.astype(np.float32)) - scan5["dm"].astype(np.float32)).max())
+    res["scan_rate"] = n * (n + 1) / 2 / secs
+    print(f"  (c) scan_pairs over phase 5's {n} images: {n * (n + 1) // 2} pairs in "
+          f"{secs:.3f}s = {res['scan_rate']:.1f} pairs/s (phase 5's scorer: "
+          f"{scan5['rate']:.1f}; host-to-device copies of the images included); "
+          f"max |1 - score - phase 5's distance| {gap:.3e} (tol 1e-2); launches "
+          f"{counts}", flush=True)
+    if gap > 1e-2 or not all(counts.get(k, 0) > 0 for k in MAIN_PATH):
+        raise AssertionError("the bundle's scan differs from phase 5's or skipped a kernel")
+
+    # (d) the HTTP host on localhost: concurrent clients, coalesced batches
+    rng = np.random.default_rng(20)
+    xs = [imgs[rng.integers(0, n, size=(k, 2))] for k in (1, 2, 3, 4)]
+    server = BundleServer(scorer, batch_stages=("pair", "pair_u8"), max_batch=64,
+                          max_wait_ms=5.0)
+    server.start()
+    try:
+        res["http"] = {}
+        for stage, wire in (("pair", xs),
+                            ("pair_u8", [((x * 0.5 + 0.5) * 255).round().clip(0, 255)
+                                         .astype(np.uint8) for x in xs])):
+            before = dict(server.stats()["batched"][stage])
+            lat, wall, pairs, first = serve_load(server.url, stage, wire)
+            after = server.stats()["batched"][stage]
+            calls = after["device_calls"] - before["device_calls"]
+            reqs = after["requests"] - before["requests"]
+            r = {"requests_s": len(lat) / wall, "pairs_s": pairs / wall,
+                 "device_calls": calls, "requests": reqs,
+                 "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                 "p99_ms": float(np.percentile(lat, 99) * 1e3)}
+            res["http"][stage] = r
+            worst = max(float(np.abs(first[i] - scorer(stage, wire[i]).float().cpu().numpy()).max())
+                        for i in first)
+            print(f"  (d) {stage} over HTTP ({SERVE_THREADS} threads x {SERVE_REQUESTS} "
+                  f"requests of 1-4 pairs, {'float32' if stage == 'pair' else 'uint8'} "
+                  f"wire): {r['requests_s']:.1f} requests/s, {r['pairs_s']:.1f} pairs/s, "
+                  f"{calls} device calls for {reqs} requests, latency p50 "
+                  f"{r['p50_ms']:.1f} ms p99 {r['p99_ms']:.1f} ms; responses against "
+                  f"a direct replay max |diff| {worst:.3e} (tol 1e-2)", flush=True)
+            if reqs != SERVE_THREADS * SERVE_REQUESTS or calls > reqs or worst > 1e-2:
+                raise AssertionError(f"the HTTP host served {reqs} requests in {calls} "
+                                     f"calls, worst gap {worst}")
+    finally:
+        server.shutdown()
+    del scorer, imgs
+    torch.cuda.empty_cache()
+
+    # (e) a bucketed bundle through the export entry, verified on the card;
+    # (f) meanwhile the host's own entry starts in a child process on (a)'s
+    # bundle (its start-up overlaps the export)
+    child = serve_cli_start(out)
+    try:
+        out_b = os.path.join(tmp, "bundle_b")
+        t0 = time.time()
+        meta_b = export_serving.main(["--cfg", FLAGSHIP_CFG, "--output", out_b,
+                                      "--batch-sizes", "8,64", "--verify"])
+        res["bucketed_s"] = time.time() - t0
+        print(f"  (e) python -m vit_ed_tpu_torch.export_serving --batch-sizes 8,64 "
+              f"--verify: {sum(len(v) for v in meta_b['stages'].values())} artifacts "
+              f"(buckets {meta_b['batch_mode']}), export and verify "
+              f"{res['bucketed_s']:.1f}s", flush=True)
+        if meta_b["batch_mode"] != [8, 64]:
+            raise AssertionError(f"buckets {meta_b['batch_mode']}")
+        res["cli"] = serve_cli_check(*child, model, xs[1])
+    finally:
+        serve_cli_stop(child[0])
+    del model
+    torch.cuda.empty_cache()
+    print(f"  phase 20 took {time.time() - t_phase:.1f}s", flush=True)
+    return res
+
+
+def serve_cli_start(bundle):
+    """Start ``python -m vit_ed_tpu_torch.serve --bundle <bundle> --port 0``
+    as a child process: (the process, its start time)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vit_ed_tpu_torch.serve", "--bundle", bundle,
+         "--port", "0"], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    return proc, time.time()
+
+
+def serve_cli_check(proc, t0, model, x):
+    """Wait for the child's ``serving ... on <url>`` line, then one
+    ``/v1/score`` of ``x`` against the live model."""
+    import select
+
+    from vit_ed_tpu_torch.serve import ServeClient
+
+    line = ""
+    while " on http://" not in line and time.time() - t0 < 300:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        line = proc.stdout.readline() if ready else ""
+        if not line and proc.poll() is not None:
+            break
+    if " on http://" not in line:
+        raise AssertionError(f"the serving host did not start: {line!r}")
+    up = time.time() - t0
+    got = ServeClient(line.strip().rsplit(" on ", 1)[1], timeout=300).score(x)
+    with torch.inference_mode():
+        want = model(torch.from_numpy(x).cuda()).float().cpu().numpy()
+    gap = float(np.abs(got - want).max())
+    print(f"  (f) python -m vit_ed_tpu_torch.serve --bundle <(a)'s bundle>: serving "
+          f"within {up:.1f}s of its start (it started with (e)); /v1/score of "
+          f"{len(x)} pairs against the live model max |diff| {gap:.3e} (tol 2e-3)",
+          flush=True)
+    if gap > 2e-3:
+        raise AssertionError("the serving host's scores differ from the live model")
+    return {"up_s": up, "max_abs_diff": gap}
+
+
+def serve_cli_stop(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def moe_argv(data, out, tag, *extra, opts=()):
+    return ["--cfg", MOE_CFG, "--data-path", data, "--mode", "train", "--output", out,
+            "--tag", tag, "--batch-size", str(MOE_BATCH), *extra, "--opts",
+            *MOE_ONE_CARD, "TRAIN.AUTO_RESUME", "False", *opts]
+
+
+def moe_bank_count(model):
+    from vit_ed_tpu_torch.models.moe import MoeMlp
+
+    return sum(isinstance(m, MoeMlp) for m in model.modules())
+
+
+def phase_moe_full(tmp):
+    """Phase 21a: the full-depth one-card pjs-L MoE configuration, trained
+    MOE_STEPS updates through the hisfrag trainer's own step."""
+    from vit_ed_tpu_torch.hisfrag import HisfragTrainer, parse_option
+
+    data = os.path.join(tmp, "train_data")              # phase 9's corpus
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    trainer = HisfragTrainer(parse_option(moe_argv(data, os.path.join(tmp, "out"),
+                                                   "moe_full")))
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    pjs = trainer.config.MODEL.PJS
+    print(f"  (a) {n_params / 1e9:.3f} B parameters (embed {pjs.EMBED_DIM}, "
+          f"{pjs.NUM_HEADS} heads, {pjs.DEPTH} + {pjs.C_DEPTH} blocks, "
+          f"{moe_bank_count(model)} banks of {pjs.MOE.EXPERTS} experts, top-"
+          f"{pjs.MOE.ROUTE_K}, jitter {pjs.MOE.JITTER}), built in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    loader = trainer.get_dataloader("train")
+    trainer.setup_training(len(loader))
+    A.reset_launch_counts()
+    steps = []
+    it = iter(loader)
+    for _ in range(MOE_STEPS):
+        samples, targets = next(it)
+        micro = [trainer.prepare_data(samples, targets)]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        a.record()
+        loss, norm = trainer.train_step(micro)
+        b.record()
+        torch.cuda.synchronize()
+        lb, z = trainer.moe_aux.float().mean(0).tolist()
+        steps.append({"ms": (time.time() - t0) * 1e3, "device_ms": a.elapsed_time(b),
+                      "loss": loss.item(), "grad_norm": norm.item(), "lb": lb, "z": z,
+                      "pairs": int(micro[0]["pair_mask"].sum()),
+                      "flops": trainer.step_model_flops(micro)})
+    counts = nonzero(A.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed_steps = steps[1:]                     # the first warms cuBLAS up
+    step_s = float(np.median([s["ms"] for s in timed_steps])) / 1e3
+    mfu = trainer._log_mfu(step_s, float(np.mean([s["flops"] for s in timed_steps])), "pjs")
+    print(f"  (a) {MOE_STEPS} updates of {MOE_BATCH} images -> "
+          f"{[s['pairs'] for s in steps]} live pairs: step {step_s * 1e3:.1f} ms median "
+          f"(host clock, batch copy included; first {steps[0]['ms']:.1f}), device "
+          f"{np.median([s['device_ms'] for s in timed_steps]):.1f} ms (CUDA events); peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    print(f"  (a) loss {[round(s['loss'], 4) for s in steps]}; grad_norm "
+          f"{[round(s['grad_norm'], 3) for s in steps]}; mean load balance "
+          f"{[round(s['lb'], 4) for s in steps]}; mean router z "
+          f"{[round(s['z'], 3) for s in steps]}", flush=True)
+    print(f"  (a) {mfu}", flush=True)
+    print(f"  (a) launches over the {MOE_STEPS} updates: {counts}", flush=True)
+    for s in steps:
+        if not all(np.isfinite(s[k]) and s[k] > 0 for k in ("loss", "grad_norm", "lb", "z")):
+            raise AssertionError(f"MoE step not finite: {s}")
+    for name in TRAIN_PATH_FWD + TRAIN_PATH_BWD:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"the MoE training step never launched {name}")
+    res = {"params": n_params, "step_ms": step_s * 1e3, "peak_gib": peak,
+           "device_ms": float(np.median([s["device_ms"] for s in timed_steps])),
+           "mfu": mfu, "launches": counts}
+    del it
+    res["breakdown"] = step_breakdown(trainer)
+    del trainer, model, loader
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_entry(tmp):
+    """Phase 21a (the entry), b, c at MOE_SHORT's depth."""
+    from vit_ed_tpu_torch import hisfrag
+    from vit_ed_tpu_torch.serve import export_scorer, load_scorer
+    from vit_ed_tpu_torch.utils import set_seed
+
+    data = os.path.join(tmp, "train_data")
+    A.reset_launch_counts()
+    t0 = time.time()
+    trainer = hisfrag.main(moe_argv(data, os.path.join(tmp, "out"), "moe_entry", opts=(
+        *MOE_SHORT, "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "2")))
+    torch.cuda.synchronize()
+    counts = nonzero(A.launches)
+    lb, z = trainer.moe_aux.float().mean(0).tolist()
+    print(f"  (a) python -m vit_ed_tpu_torch.hisfrag --mode train at 2 + 2 blocks: "
+          f"{trainer.step} updates, val loss {trainer.min_loss:.4f}, last aux terms "
+          f"load balance {lb:.4f} router z {z:.3f}; {time.time() - t0:.1f}s with two "
+          f"validates and the checkpoints; launches {counts}", flush=True)
+    if trainer.step < 3 or not np.isfinite(trainer.min_loss) or not np.isfinite(lb):
+        raise AssertionError("the MoE entry did not train")
+    for name in TRAIN_PATH_FWD + TRAIN_PATH_BWD:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"the MoE entry never launched {name}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) a dense pjs-L checkpoint from a seed, upcycled by --pretrained
+    dense_cfg = get_config(types.SimpleNamespace(
+        cfg=MOE_CFG, opts=[*MOE_ONE_CARD, *MOE_SHORT, "MODEL.PJS.MOE.EXPERTS", "0"]))
+    torch.manual_seed(1)
+    dense = build_model(dense_cfg, torch.device("cuda"))
+    path = os.path.join(tmp, "dense_pjsL.pth")
+    torch.save({k: v.cpu() for k, v in dense.state_dict().items()}, path)
+    trainer = hisfrag.HisfragTrainer(hisfrag.parse_option(moe_argv(
+        data, os.path.join(tmp, "out"), "moe_upcycle", "--pretrained", path,
+        opts=MOE_SHORT)))
+    moe = trainer.model
+    set_seed(trainer.config.SEED)
+    fresh = build_model(trainer.config, torch.device("cuda"))
+    banks = [(i, blk) for i, blk in enumerate(moe.blocks) if hasattr(blk.mlp, "w1")]
+    same = all(
+        torch.equal(blk.mlp.w1[e], dense.blocks[i].mlp.fc1.weight.t())
+        and torch.equal(blk.mlp.b1[e], dense.blocks[i].mlp.fc1.bias)
+        and torch.equal(blk.mlp.w2[e], dense.blocks[i].mlp.fc2.weight.t())
+        and torch.equal(blk.mlp.b2[e], dense.blocks[i].mlp.fc2.bias)
+        for i, blk in banks for e in range(blk.mlp.num_experts))
+    routers = all(torch.equal(blk.mlp.router.weight, fresh.blocks[i].mlp.router.weight)
+                  for i, blk in banks)
+    dense_rest = torch.equal(moe.blocks[0].mlp.fc1.weight, dense.blocks[0].mlp.fc1.weight)
+    print(f"  (b) dense pjs-L checkpoint (seed 1, 2 + 2 blocks) through --pretrained: "
+          f"{len(banks)} bank(s) x {banks[0][1].mlp.num_experts} experts equal to their "
+          f"block's fc1 / fc2 {same}; routers at their init {routers}; dense blocks "
+          f"loaded {dense_rest}", flush=True)
+    if not (banks and same and routers and dense_rest):
+        raise AssertionError("sparse upcycling did not initialise the experts")
+    del dense, fresh
+
+    # (c) the upcycled model's pair stage, exported and replayed
+    out = os.path.join(tmp, "bundle_moe")
+    model = moe.eval()
+    t0 = time.time()
+    export_scorer(model, None, out, stages=("pair",))
+    scorer = load_scorer(out)
+    print(f"  (c) MoE pair stage exported in {time.time() - t0:.1f}s", flush=True)
+    gen = torch.Generator("cuda").manual_seed(21)
+    replay_vs_live(model, scorer, "pair", torch.randn((7, 2, 512, 512, 3), generator=gen,
+                                                      device="cuda"))
+    del trainer, moe, model, scorer
+    torch.cuda.empty_cache()
+
+
+def phase_moe(tmp):
+    """Phase 21."""
+    print(f"== phase 21: MoE on one card, the pjs-L MoE configuration "
+          f"({os.path.relpath(MOE_CFG, ROOT)}) without its mesh, bf16, "
+          f"{MOE_BATCH} images per update", flush=True)
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory held by earlier phases: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    res = phase_moe_full(tmp)
+    phase_moe_entry(tmp)
+    print(f"  phase 21 took {time.time() - t0:.1f}s", flush=True)
+    return res
+
+
+def phase_slice12(tmp, gen, scan5):
+    """Phases 20 and 21."""
+    serve = phase_serve(tmp, scan5, gen)
+    moe = phase_moe(tmp)
+    return serve, moe
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -4258,6 +4752,7 @@ def main():
         vit_rows = phase_vit(tmp, gen)
         pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
         phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt)
+        phase_slice12(tmp, gen, scan5)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "

@@ -174,6 +174,17 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {port / "metrics" / "wi19_sharded.py", port / "ops" / "quant.py",
             port / "ops" / "explain.py", port / "visualise_attentions.py",
             port / "visualise_dataset.py"} <= set(files)
+    # the serving tier, its export entry and the expert banks
+    serve = port / "serve"
+    assert {serve / "__init__.py", serve / "__main__.py", serve / "export.py",
+            serve / "scan.py", serve / "server.py", serve / "client.py",
+            port / "export_serving.py", port / "models" / "moe.py"} <= set(files)
+    # the host replays bundles with no model code: serve/ imports nothing of
+    # models/ (export_serving.py is the one place that builds a model)
+    model_imports = [(str(f.relative_to(ROOT)), name) for f in files
+                     if f.parent == serve for name in _imports(f)
+                     if name.startswith("vit_ed_tpu_torch.models")]
+    assert not model_imports, model_imports
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_ed_tpu", "cv2",
               "pandas"}
     found = [(str(f.relative_to(ROOT)), name) for f in files

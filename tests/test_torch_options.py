@@ -96,3 +96,70 @@ def test_head_dropout_draws_from_the_model_generator():
     model(x).sum().backward()
     assert model.head.weight.grad is not None
     assert torch.all(model.head.weight.grad[:, ~mask.any(0)] == 0)
+
+
+# the switches the port still refuses: each raises naming its ROADMAP item
+# (12b: the parallelism of several cards)
+UNPORTED_SWITCHES = [
+    ("TPU.SEQ_PARALLEL", "True"), ("TPU.RING_ATTN", "True"), ("TPU.FSDP", "True"),
+    ("TPU.TENSOR_PARALLEL", "True"), ("TPU.EXPERT_PARALLEL", "True"),
+    ("TPU.PIPELINE_STAGES", "2"),
+]
+
+
+def _hisfrag_config(*opts):
+    return get_config(types.SimpleNamespace(
+        cfg=str(ROOT / "configs" / "hisfrag" / "hisfrag20_patch16_512.yaml"),
+        opts=["MODEL.PJS.EMBED_DIM", "64", "MODEL.PJS.NUM_HEADS", "2", "MODEL.PJS.DEPTH", "2",
+              "MODEL.PJS.C_DEPTH", "1", "DATA.IMG_SIZE", "32", *opts]))
+
+
+@pytest.mark.parametrize("key,value", UNPORTED_SWITCHES)
+def test_unported_switches_raise_with_their_roadmap_item(key, value):
+    with pytest.raises(NotImplementedError, match=rf"{key}.*item 12b"):
+        build_model(_hisfrag_config(key, value))
+
+
+def test_meshes_and_multichip_bundles_raise_with_their_roadmap_item(tmp_path):
+    """A mesh (the trainer), a multi-chip bundle (export, load, the host's
+    --mesh-data, the export entry's --mesh-data) raise naming item 12b."""
+    from vit_ed_tpu_torch import export_serving
+    from vit_ed_tpu_torch.serve import export_scorer, load_scorer
+    from vit_ed_tpu_torch.serve.server import main as serve_main
+    from vit_ed_tpu_torch.train.engine import Trainer
+
+    args = types.SimpleNamespace(
+        device="cpu", cfg=str(ROOT / "configs" / "hisfrag" / "hisfrag20_patch16_512.yaml"),
+        opts=["TPU.MESH_SHAPE", "[2]"])
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        Trainer(args)
+    model = build_model(_hisfrag_config()).eval()
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        export_scorer(model, None, str(tmp_path), mesh=object(), device="cpu")
+    export_scorer(model, None, str(tmp_path), stages=("pair",), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        load_scorer(str(tmp_path), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        serve_main(["--bundle", str(tmp_path), "--device", "cpu", "--mesh-data", "2"])
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        export_serving.main(["--cfg", args.cfg, "--output", str(tmp_path / "b"),
+                             "--device", "cpu", "--mesh-data", "2"])
+
+
+def test_moe_experts_builds_encoder_banks():
+    """MODEL.PJS.MOE.EXPERTS > 0 no longer raises: every INTERVAL-th encoder
+    block gets a bank with the config's knobs, the decoder stays dense."""
+    from vit_ed_tpu_torch.models.moe import MoeMlp
+
+    model = build_model(_hisfrag_config(
+        "MODEL.PJS.MOE.EXPERTS", "4", "MODEL.PJS.MOE.ROUTE_K", "2",
+        "MODEL.PJS.MOE.CAPACITY", "2.0", "MODEL.PJS.MOE.JITTER", "0.1"))
+    banks = [isinstance(b.mlp, MoeMlp) for b in model.blocks]
+    assert banks == [False, True]
+    bank = model.blocks[1].mlp
+    assert (bank.num_experts, bank.route_k, bank.capacity_factor, bank.jitter) == (4, 2, 2.0, 0.1)
+    assert not any(isinstance(m, MoeMlp) for m in model.cross_blocks.modules())
+    x = torch.zeros(2, 2, 32, 32, 3)
+    with torch.no_grad():
+        out, aux = model.eval()(x, with_aux=True)
+    assert out.shape == (2, 1) and aux.shape == (1, 2)

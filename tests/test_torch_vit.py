@@ -311,10 +311,17 @@ def test_build_model_types_and_unported_options():
     config.TPU.INT8_SCORE = True
     assert isinstance(build_model(config), ViT)
     config.TPU.INT8_SCORE = False
+    # MODEL.PJS.MOE gives the pjs model its expert banks; the ViT builds
+    # dense, as in the JAX factory
     config.MODEL.PJS.MOE.EXPERTS = 4
-    with pytest.raises(NotImplementedError, match="MODEL.PJS.MOE.EXPERTS"):
-        build_model(config)
+    model = build_model(config)
+    assert isinstance(model, ViT) and hasattr(model.blocks[0].mlp, "fc1")
     config.MODEL.PJS.MOE.EXPERTS = 0
+    # the parallelism switches still raise, naming their ROADMAP item
+    config.TPU.TENSOR_PARALLEL = True
+    with pytest.raises(NotImplementedError, match="TPU.TENSOR_PARALLEL.*item 12b"):
+        build_model(config)
+    config.TPU.TENSOR_PARALLEL = False
     config.TPU.FAST_GELU = True
     assert build_model(config).blocks[0].mlp.act.__name__ == "gelu_tanh"
     config.TPU.FAST_GELU = False

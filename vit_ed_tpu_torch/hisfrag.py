@@ -49,7 +49,7 @@ from vit_ed_tpu_torch.metrics import get_metrics
 from vit_ed_tpu_torch.metrics.wi19_sharded import merge_partials, row_partials
 from vit_ed_tpu_torch.ops.gather import gather_rows
 from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
-from vit_ed_tpu_torch.train.engine import Trainer
+from vit_ed_tpu_torch.train.engine import Trainer, moe_aux_weights
 from vit_ed_tpu_torch.train.losses import bce_with_logits, masked_bce_with_logits
 from vit_ed_tpu_torch.utils import list_to_idx
 
@@ -198,18 +198,23 @@ class HisfragTrainer(Trainer):
     def make_loss_fn(self, criterion):
         reduction = self.LOSS_REDUCTION
 
+        with_aux = moe_aux_weights(self.config)[0] > 0
+
         def loss_fn(model, batch):
             samples = batch["samples"]
-            feats = model.encode(samples)
+            # the expert banks live in the encoder: their aux terms come
+            # with its features
+            feats, aux = model.encode(samples, with_aux=True)
             tokens = model.prepare_x2(samples)
             # gather_rows: the backward sums each image's pairs in a fixed
             # order (index_select's CUDA backward adds with atomics)
             f = gather_rows(feats, batch["gj"].long())
             t = gather_rows(tokens, batch["gi"].long())
             logits = model.score_tokens(f, t)
-            return masked_bce_with_logits(logits.float(), batch["pair_targets"],
+            loss = masked_bce_with_logits(logits.float(), batch["pair_targets"],
                                           batch["pair_mask"],
                                           reduction=reduction)
+            return self.add_moe_aux(loss, aux) if with_aux else loss
 
         return loss_fn
 

@@ -4,10 +4,12 @@ Builds every type of the JAX factory: the pjs ViT-ED (the pair scorer of
 every pair path), the plain ViT (the embedding model of the triplet
 baselines), and the BatchNorm baselines ``ss`` / ``ss2`` / ``ss2ce``
 (SimSiam, models/simsiam.py) and ``resnet`` / ``mixconv``
-(models/resnet.py). The options not ported yet raise NotImplementedError
-naming the ROADMAP item that ports them. ``TPU.INT8_SCORE`` is a scoring
-switch, read by the entries that score (the scorer quantizes the blocks'
-GEMMs while it scores), and builds the same model.
+(models/resnet.py); ``MODEL.PJS.MOE`` gives the pjs model its encoder
+expert banks (models/moe.py; the other types build dense, as in the JAX
+factory). The parallelism switches, which need several cards, raise
+NotImplementedError naming ROADMAP queue A item 12b. ``TPU.INT8_SCORE`` is a
+scoring switch, read by the entries that score (the scorer quantizes the
+blocks' GEMMs while it scores), and builds the same model.
 """
 
 from __future__ import annotations
@@ -28,10 +30,9 @@ def compute_dtype(config) -> torch.dtype:
 
 
 def _unported(config):
-    """(switched-on option, ROADMAP item) pairs this slice does not run."""
-    pjs, tpu = config.MODEL.PJS, config.TPU
+    """(switched-on option, ROADMAP item) pairs the port does not run."""
+    tpu = config.TPU
     checks = [
-        (pjs.MOE.EXPERTS > 0, "MODEL.PJS.MOE.EXPERTS", "queue A item 12a (MoE)"),
         (tpu.SEQ_PARALLEL, "TPU.SEQ_PARALLEL", "queue A item 12b"),
         (tpu.RING_ATTN, "TPU.RING_ATTN", "queue A item 12b"),
         (tpu.FSDP, "TPU.FSDP", "queue A item 12b"),
@@ -100,5 +101,10 @@ def build_model(config, device=None) -> nn.Module:
         drop_rate=config.MODEL.DROP_RATE,
         fast_gelu=config.TPU.FAST_GELU,
         keep_attn=pjs.KEEP_ATTN,
+        moe_experts=pjs.MOE.EXPERTS,
+        moe_interval=pjs.MOE.INTERVAL,
+        moe_capacity=pjs.MOE.CAPACITY,
+        moe_route_k=pjs.MOE.ROUTE_K,
+        moe_jitter=pjs.MOE.JITTER,
     )
     return model.to(device) if device is not None else model

@@ -9,6 +9,11 @@ a converted JAX tree loads with ``strict=True``. Layout changes:
 - PatchEmbed conv: flax [kh, kw, C, D] -> torch [D, C, kh, kw]
 - LayerNorm: scale/bias -> weight/bias
 - the fused qkv / kv projections keep their q|k|v column order
+- a MoE expert bank (models/moe.py): the router's kernel [D, E] -> the
+  torch Linear weight ``mlp.router.weight`` [E, D]; ``w1`` [E, D, H],
+  ``b1``, ``w2`` [E, H, D] and ``b2`` keep the flax layout and names (the
+  JAX ``params_to_torch_state_dict`` refuses such trees: these names are
+  the port's)
 
 The BatchNorm model types (``models/resnet.py``, ``models/simsiam.py``) keep
 flax's module names, so ``flax_variables_to_state_dict`` converts their
@@ -52,10 +57,6 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     for name, p in params.items():
         if not (name.startswith("blocks_") or name.startswith("cross_blocks_")):
             continue
-        if "mlp" in p and "w1" in p["mlp"]:
-            raise NotImplementedError(
-                f"{name} holds a MoE expert bank; MoE is not ported yet "
-                f"(ROADMAP queue A item 12)")
         if "q_norm" in p["attn"]:
             raise NotImplementedError(
                 "qk_norm is not ported yet (ROADMAP queue A item 8: no config key "
@@ -66,8 +67,14 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         put_linear(prefix + ".attn.qkv", p["attn"]["qkv"])
         put_linear(prefix + ".attn.proj", p["attn"]["proj"])
         put_ln(prefix + ".norm2", p["norm2"])
-        put_linear(prefix + ".mlp.fc1", p["mlp"]["fc1"])
-        put_linear(prefix + ".mlp.fc2", p["mlp"]["fc2"])
+        if "w1" in p["mlp"]:
+            bank = p["mlp"]
+            sd[prefix + ".mlp.router.weight"] = np.asarray(bank["router"]["kernel"]).T
+            for leaf in ("w1", "b1", "w2", "b2"):
+                sd[f"{prefix}.mlp.{leaf}"] = np.asarray(bank[leaf])
+        else:
+            put_linear(prefix + ".mlp.fc1", p["mlp"]["fc1"])
+            put_linear(prefix + ".mlp.fc2", p["mlp"]["fc2"])
         for ls in ("ls1", "ls2", "ls_cross"):
             if ls in p:
                 sd[f"{prefix}.{ls}.gamma"] = np.asarray(p[ls]["gamma"])
@@ -116,11 +123,44 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     return model
 
 
+def _upcycle_moe(sd: Dict[str, Any], own: Mapping[str, torch.Tensor],
+                 logger=None) -> None:
+    """Sparse upcycling (``vit_ed_tpu/train/checkpoint.py::_upcycle_moe``):
+    where a DENSE checkpoint meets an expert bank of ``own``, every expert
+    starts from the block's fc1 / fc2, transposed into the bank's layout
+    (w1 [E, D, H] from fc1's [H, D] weight); the router keeps its init. A
+    bank whose dense shapes do not match is skipped with a warning."""
+    n = 0
+    for key in own:
+        if not key.endswith(".mlp.w1"):
+            continue
+        prefix = key[:-len("w1")]
+        if prefix + "w1" in sd or prefix + "fc1.weight" not in sd:
+            continue
+        src = {"w1": torch.as_tensor(sd[prefix + "fc1.weight"]).t(),
+               "b1": torch.as_tensor(sd[prefix + "fc1.bias"]),
+               "w2": torch.as_tensor(sd[prefix + "fc2.weight"]).t(),
+               "b2": torch.as_tensor(sd[prefix + "fc2.bias"])}
+        if any(own[prefix + leaf].shape[1:] != v.shape for leaf, v in src.items()):
+            if logger:
+                logger.warning(f"Sparse upcycling skipped for {prefix[:-5]}: dense "
+                               f"MLP shapes do not match the expert bank")
+            continue
+        for leaf, v in src.items():
+            sd[prefix + leaf] = v.expand(own[prefix + leaf].shape).clone()
+        n += 1
+    if n and logger:
+        logger.info(f"Sparse upcycling: initialised {n} expert banks from "
+                    f"the dense checkpoint's MLPs")
+
+
 def load_pretrained(model: nn.Module, path: str, logger=None) -> nn.Module:
     """Load a reference ``.pth`` checkpoint (a state dict, or a dict with a
-    ``model`` entry). A head whose class count differs is re-initialised to
-    zeros; missing and unexpected keys are reported, as the JAX package's
-    ``load_pretrained`` does."""
+    ``model`` entry), or a checkpoint of the port. A head whose class count
+    differs is re-initialised to zeros; a dense checkpoint loaded into a
+    model with expert banks initialises them (``_upcycle_moe``); missing and
+    unexpected keys are reported, as the JAX package's ``load_pretrained``
+    does."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = dict(ckpt.get("model", ckpt))
     own = model.state_dict()
@@ -130,6 +170,7 @@ def load_pretrained(model: nn.Module, path: str, logger=None) -> nn.Module:
                 logger.warning("classifier head shape differs; "
                                "re-initialising it to 0")
             sd[key] = torch.zeros_like(own[key])
+    _upcycle_moe(sd, own, logger)
     res = model.load_state_dict(
         {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()},
         strict=False)

@@ -21,14 +21,16 @@ use; the chosen rounding points, on bf16 activations:
 
 In float32 every one of these is the plain float32 computation.
 
-Two switches of the JAX package's layers are ported:
+Three switches of the JAX package's layers are ported:
 
 - the int8 route of ``Linear`` (``ops/quant.py``), which a scorer turns on
   for the blocks of its model while it scores (``TPU.INT8_SCORE``);
 - ``keep_attn`` of the attention modules (``MODEL.PJS.KEEP_ATTN``): the
   explicit probabilities of ``ops.attention.attention_probs`` instead of the
   fused kernels, each call's [B, H, Sq, Sk] map kept in the module's
-  ``attn_map`` (flax sows it into ``intermediates``).
+  ``attn_map`` (flax sows it into ``intermediates``);
+- the expert bank of ``Block`` (``models/moe.py``, ``MODEL.PJS.MOE``),
+  whose aux terms ``Block.forward_aux`` returns beside the block's output.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from vit_ed_tpu_torch.ops.attention import (
     fused_attention_packed_qkv,
     fused_attention_packed_qkv_cls,
 )
+from vit_ed_tpu_torch.models.moe import MoeMlp
 from vit_ed_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
 from vit_ed_tpu_torch.ops.quant import int8_linear
 
@@ -133,12 +136,14 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
 
 def seed_generators(model: nn.Module, seed: int) -> torch.Generator:
     """Create one generator on the device of ``model``'s parameters, seed
-    it with ``seed`` and hand it to every DropPath and Dropout of the
-    model; returns it (its state goes into checkpoints)."""
+    it with ``seed`` and hand it to every module of the model that draws
+    (DropPath, Dropout and the MoE router's jitter: each module with a
+    ``generator`` attribute); returns it (its state goes into
+    checkpoints)."""
     gen = torch.Generator(device=next(model.parameters()).device)
     gen.manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, DropPath):
+        if hasattr(m, "generator"):
             m.generator = gen
     return gen
 
@@ -274,25 +279,39 @@ class CrossAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer encoder block."""
+    """Pre-LN transformer encoder block. ``moe`` (the keyword arguments of
+    ``models.moe.MoeMlp`` past its widths: ``num_experts``,
+    ``capacity_factor``, ``route_k``, ``jitter``) swaps the MLP for an
+    expert bank."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, init_values: Optional[float] = None,
                  drop_path: float = 0.0, fast_gelu: bool = False,
-                 keep_attn: bool = False):
+                 keep_attn: bool = False, moe: Optional[dict] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias, keep_attn)
         self.ls1 = _scale(dim, init_values)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu)
+        if moe:
+            self.mlp = MoeMlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu, **moe)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu)
         self.ls2 = _scale(dim, init_values)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_aux(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block and its expert bank's aux terms [2] (None for a
+        dense MLP), both values of the call."""
         x = x + self.drop_path1(self.ls1(self.attn(self.norm1(x))))
-        return x + self.drop_path2(self.ls2(self.mlp(self.norm2(x))))
+        y, aux = self.mlp(self.norm2(x)), None
+        if isinstance(y, tuple):
+            y, aux = y
+        return x + self.drop_path2(self.ls2(y)), aux
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_aux(x)[0]
 
 
 class CrossBlock(nn.Module):

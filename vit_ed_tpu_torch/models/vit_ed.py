@@ -27,6 +27,13 @@ generator rewound so that the recomputed masks are the same. The other
 dropouts are 0 in every config of the repo; they are taken as arguments
 and training with a non-zero one raises (ROADMAP queue A item 8).
 
+``moe_experts > 0`` (``MODEL.PJS.MOE``) swaps the MLP of every
+``moe_interval``-th ENCODER block for an expert bank (models/moe.py); the
+decoder stays dense, so every scan schedule is untouched. A training loss
+reads the banks' aux terms as values of the forward: ``encode(x,
+with_aux=True)`` and ``forward(..., with_aux=True)`` return them beside
+their output, one (load balance, router z) row per bank.
+
 ``keep_attn`` (``MODEL.PJS.KEEP_ATTN``) runs every attention on explicit
 probabilities and keeps each module's map (``attention_maps``), as the JAX
 model sows them; it also turns the CLS short-circuit off, since the maps
@@ -64,7 +71,9 @@ class ViTED(ViTBase):
                  use_checkpoint: bool = False, drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, fast_gelu: bool = False,
-                 keep_attn: bool = False):
+                 keep_attn: bool = False, moe_experts: int = 0,
+                 moe_interval: int = 2, moe_capacity: float = 1.25,
+                 moe_route_k: int = 1, moe_jitter: float = 0.0):
         super().__init__(dtype, use_checkpoint, pos_drop_rate=pos_drop_rate,
                          proj_drop_rate=proj_drop_rate,
                          attn_drop_rate=attn_drop_rate)
@@ -86,9 +95,13 @@ class ViTED(ViTBase):
                                   std=0.02))
         dpr = torch.linspace(0, drop_path_rate, depth).tolist()
         dpr_cross = torch.linspace(0, drop_path_rate, c_depth).tolist()
+        moe = dict(num_experts=moe_experts, capacity_factor=moe_capacity,
+                   route_k=moe_route_k, jitter=moe_jitter)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values, dpr[i],
-                  fast_gelu, keep_attn)
+                  fast_gelu, keep_attn,
+                  moe if moe_experts > 0 and i % moe_interval == moe_interval - 1
+                  else None)
             for i in range(depth))
         self.cross_blocks = nn.ModuleList(
             CrossBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, init_values,
@@ -103,13 +116,20 @@ class ViTED(ViTBase):
         return (self.img_size // self.patch_size) ** 2
 
     # ---------------------------------------------------------------- stream 1
-    def encode(self, x1: torch.Tensor) -> torch.Tensor:
-        """Encoder over image 1 without CLS -> [B, T, C]."""
+    def encode(self, x1: torch.Tensor, with_aux: bool = False):
+        """Encoder over image 1 without CLS -> [B, T, C]; with ``with_aux``
+        also the expert banks' aux terms, float32 [n_banks, 2]."""
         x = self._embed(x1)
         x = x + self.pos_embed[:, 1:].to(x.dtype)
+        aux = []
         for blk in self.blocks:
-            x = self._run(blk, x)
-        return x
+            x, a = self._run(blk.forward_aux, x)
+            if a is not None:
+                aux.append(a)
+        if not with_aux:
+            return x
+        return x, (torch.stack(aux) if aux
+                   else x.new_zeros((0, 2), dtype=torch.float32))
 
     # ---------------------------------------------------------------- stream 2
     def prepare_x2(self, x2: torch.Tensor) -> torch.Tensor:
@@ -215,15 +235,21 @@ class ViTED(ViTBase):
         return self.forward_head(self.norm(x))
 
     def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None,
-                forward_first_part: bool = False) -> torch.Tensor:
+                forward_first_part: bool = False, with_aux: bool = False):
         """Reference forward dispatch:
 
         - ``forward_first_part=True``: x is a batch of images -> encoder feats
         - ``x2 is not None``: x is encoder feats, x2 raw images -> pair logits
         - else: x is a stacked pair [B, 2, H, W, 3] -> pair logits
+
+        ``with_aux`` returns ``(output, aux)``, aux the expert banks' terms
+        of this call (``encode``).
         """
         if forward_first_part:
-            return self.encode(x)
+            return self.encode(x, with_aux)
         if x2 is not None:
-            return self.decode_head(x, x2)
-        return self.decode_head(self.encode(x[:, 0]), x[:, 1])
+            out = self.decode_head(x, x2)
+            return (out, x.new_zeros((0, 2), dtype=torch.float32)) if with_aux else out
+        feats, aux = self.encode(x[:, 0], with_aux=True)
+        out = self.decode_head(feats, x[:, 1])
+        return (out, aux) if with_aux else out

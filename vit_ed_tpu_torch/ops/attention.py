@@ -48,6 +48,18 @@ and dq|dk|dv are written through the same views of one fused gradient
 buffer. No split, transpose or pad copy is made (the JAX path pays four XLA
 transposes and pads S to 128).
 
+The two forwards are also registered operators, ``torch.ops.vit_ed.
+pair_forward`` and ``torch.ops.vit_ed.heads_forward`` (``torch.library.
+custom_op``; a fake implementation gives each output's shape and type).
+While ``torch.export`` traces, every wrapper call outside autograd goes
+through them, so that an exported graph holds one opaque node per attention
+call instead of whatever the wrapper would have traced on the export
+device; replayed, the node runs ``_forward`` / ``_heads_forward``, the same
+functions the eager wrappers call (the plain version on a CPU tensor, the
+counted kernel launch on a CUDA tensor). Eager calls do not go through the
+operator: the dispatcher's cost per call is a share of the launch-bound
+training step (PERF.md, PR 12).
+
 When grad mode is on and an input requires grad a wrapper runs as a
 ``torch.autograd.Function``, one per route. Launch counters: ``<layout>``
 for the forward, ``<layout>_dq`` and ``<layout>_dkv`` for the two backward
@@ -62,7 +74,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -491,17 +503,21 @@ def _to_heads(layout: str, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.unsqueeze(1) if layout == "flat" else _heads(x, num_heads)
 
 
+def _heads_out_shape(layout: str, q: torch.Tensor) -> Tuple[int, ...]:
+    """The 4-D forward's output shape in the returned layout ([B, Sq, H*D]
+    for the packed wrappers), from q's [B, H, Sq, D] view."""
+    b, h, n_q, d = q.shape
+    if layout in ("bhsd", "bhsd_eval"):
+        return (b, h, n_q, d)
+    return (b, n_q, d) if layout == "flat" else (b, n_q, h * d)
+
+
 def _heads_forward(layout: str, tensors: Sequence[torch.Tensor],
                    num_heads: int, scale: float,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     q, k, v = _heads_views(layout, tensors, num_heads)
-    b, h, n_q, d = q.shape
-    # in the returned layout ([B, Sq, H*D] for the packed wrappers): the
-    # kernel writes through the heads view of it
-    if layout in ("bhsd", "bhsd_eval"):
-        shape = (b, h, n_q, d)
-    else:
-        shape = (b, n_q, d) if layout == "flat" else (b, n_q, h * d)
+    # the kernel writes through the heads view of the returned layout
+    shape = _heads_out_shape(layout, q)
     if out is not None:
         _check_out(out, shape, q)
     if not q.is_cuda:
@@ -571,6 +587,32 @@ class _HeadsAttention(_Attention):
     backward_fn = staticmethod(_heads_backward)
 
 
+@torch.library.custom_op("vit_ed::pair_forward", mutates_args=())
+def pair_forward_op(tensors: List[torch.Tensor], layout: str, num_heads: int,
+                    scale: float) -> torch.Tensor:
+    """The pair route's forward as a registered operator: ``_forward``."""
+    return _forward(layout, tensors, num_heads, scale)
+
+
+@pair_forward_op.register_fake
+def _(tensors, layout, num_heads, scale):
+    qkv, _, c, n_q_rows = _operands(layout, tensors)
+    return qkv[0].new_empty((qkv[0].shape[0], n_q_rows, c))
+
+
+@torch.library.custom_op("vit_ed::heads_forward", mutates_args=())
+def heads_forward_op(tensors: List[torch.Tensor], layout: str, num_heads: int,
+                     scale: float) -> torch.Tensor:
+    """The 4-D route's forward as a registered operator: ``_heads_forward``."""
+    return _heads_forward(layout, tensors, num_heads, scale)
+
+
+@heads_forward_op.register_fake
+def _(tensors, layout, num_heads, scale):
+    q = _heads_views(layout, tensors, num_heads)[0]
+    return q.new_empty(_heads_out_shape(layout, q))
+
+
 def _attend(layout: str, tensors: Sequence[torch.Tensor],
             num_heads: Optional[int], scale: Optional[float],
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -618,6 +660,9 @@ def _attend(layout: str, tensors: Sequence[torch.Tensor],
                 "under no_grad, or use fused_attention_packed_kv / "
                 "fused_attention for training")
         return function.apply(layout, num_heads, scale, *tensors)
+    if out is None and torch.compiler.is_exporting():
+        op = pair_forward_op if pair else heads_forward_op
+        return op(list(tensors), layout, num_heads, float(scale))
     return function.forward_fn(layout, tensors, num_heads, scale, out)
 
 

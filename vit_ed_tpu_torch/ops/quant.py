@@ -25,7 +25,8 @@ In JAX the int32 product is an XLA ``dot_general``, not a Pallas kernel, so
 the port calls a library product: ``torch._int_mm``, on the card (int8
 tensor cores) and on the CPU alike, both exact. On the card it refuses
 M <= 16 and K or N not a multiple of 8: such operands are padded with zero
-rows and columns, which change no other entry of an exact product. Each
+rows and columns, which change no other entry of an exact product (an
+exported graph pads every M by 16 rows: its M is symbolic). Each eager
 call on a CUDA tensor adds one to ``launches["int8_gemm"]``.
 
 The parameters of a ``Linear`` stay ``weight`` / ``bias`` with int8 on or
@@ -90,17 +91,21 @@ def int8_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch._int_mm(a, w.t())
     m, k = a.shape
     n = w.shape[0]
-    mp = 32 if m <= 16 else m
+    exporting = torch.compiler.is_exporting()
+    # while torch.export traces, M is symbolic (the batch): 16 zero rows
+    # are added whatever M is, instead of a branch on it
+    mp = m + 16 if exporting else (32 if m <= 16 else m)
     kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
-    if (mp, kp) != (m, k):
+    if exporting or (mp, kp) != (m, k):
         a = F.pad(a, (0, kp - k, 0, mp - m))
     if (np_, kp) != (n, k):
         w = F.pad(w, (0, kp - k, 0, np_ - n))
-    launches["int8_gemm"] += 1
-    launches_by_shape[(m, k, n)] = launches_by_shape.get((m, k, n), 0) + 1
+    if not exporting:
+        launches["int8_gemm"] += 1
+        launches_by_shape[(m, k, n)] = launches_by_shape.get((m, k, n), 0) + 1
     # the weight's rows are the product's columns: w.t() is [K, N] column-major
     out = torch._int_mm(a.contiguous(), w.t())
-    return out if (mp, np_) == (m, n) else out[:m, :n]
+    return out if not exporting and (mp, np_) == (m, n) else out[:m, :n]
 
 
 def int8_linear(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,

@@ -14,8 +14,9 @@ prepares the skipped batches again, which realigns its draws.
 mtime. Files are written to a temporary name and renamed, so a killed run
 never leaves a half-written checkpoint under the final name.
 ``load_pretrained`` (models/convert.py) reads both these files and
-reference ``.pth`` files, re-initialising a mismatched classifier head.
-The sparse MoE upcycling of the JAX module waits for MoE (ROADMAP).
+reference ``.pth`` files, re-initialising a mismatched classifier head and
+upcycling a dense checkpoint into a model with expert banks (every expert
+from its block's fc1 / fc2, as the JAX ``_upcycle_moe``).
 """
 
 from __future__ import annotations

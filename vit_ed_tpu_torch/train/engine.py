@@ -45,8 +45,17 @@ Torch modules take their shapes at construction, so the JAX trainer's
 stacked pairs) has no counterpart; ``step_model_flops`` reads pairs or
 images off each batch's shape.
 
-Not ported yet (ROADMAP, "what the slices left out"): a device mesh and every
-parallelism switch (they raise) and MoE aux losses.
+A pjs model with expert banks (``MODEL.PJS.MOE.EXPERTS > 0``) and
+``MOE.AUX_WEIGHT > 0`` adds ``AUX_WEIGHT * sum(load balance) + Z_WEIGHT *
+sum(router z)`` to the default loss, as the JAX ``make_train_step`` does;
+the terms are values of the forward (``ViTED.forward(..., with_aux=True)``),
+and the last update's are logged on each ``Train:`` line. A custom
+``make_loss_fn`` that wants them adds them itself
+(``models.moe.collect_moe_aux``; hisfrag's does).
+
+Not ported (ROADMAP queue A items 7b and 12b, both waiting for a host with
+several cards): several processes, a device mesh and every parallelism
+switch; they raise.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from vit_ed_tpu_torch.data.samplers import (
 from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
 from vit_ed_tpu_torch.device import resolve_device
 from vit_ed_tpu_torch.models.build import build_model
+from vit_ed_tpu_torch.models.moe import collect_moe_aux
 from vit_ed_tpu_torch.train import checkpoint as ckpt
 from vit_ed_tpu_torch.train.optim import (
     build_optimizer,
@@ -93,6 +103,15 @@ LAYER_COUNTED = ("ss", "ss2", "ss2ce", "resnet", "mixconv")
 LossFn = Callable[[torch.nn.Module, Batch], torch.Tensor]
 
 
+def moe_aux_weights(config) -> Tuple[float, float]:
+    """(AUX_WEIGHT, Z_WEIGHT) of a pjs model with expert banks, else (0, 0):
+    the weights of the aux terms a training loss adds."""
+    moe = config.MODEL.PJS.MOE
+    if config.MODEL.TYPE == "pjs" and moe.EXPERTS > 0:
+        return float(moe.AUX_WEIGHT), float(moe.Z_WEIGHT)
+    return 0.0, 0.0
+
+
 class Trainer:
     """Template trainer. Subclasses override ``get_criterion`` / ``validate``
     and optionally the data and loss hooks."""
@@ -103,7 +122,7 @@ class Trainer:
         if self.config.TPU.MESH_SHAPE or self.config.TPU.MESH_AXES:
             raise NotImplementedError(
                 "TPU.MESH_SHAPE / TPU.MESH_AXES: the port trains on one "
-                "device; meshes and parallelism are ROADMAP queue A item 12")
+                "device; meshes and parallelism are ROADMAP queue A item 12b")
 
         set_seed(self.config.SEED)
 
@@ -164,6 +183,9 @@ class Trainer:
 
         self.data_loader_registers: Dict[str, DataLoader] = {}
         self._layer_flops: Dict[Tuple[int, ...], int] = {}
+        # the expert banks' aux terms [n_banks, 2] of the last training
+        # forward whose loss added them (None without MoE aux losses)
+        self.moe_aux: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------- data hooks
     def get_transforms(self) -> Dict[str, Callable]:
@@ -208,12 +230,25 @@ class Trainer:
     def get_criterion(self) -> Callable:
         raise NotImplementedError()
 
+    def add_moe_aux(self, loss: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+        """``loss`` plus the weighted aux terms (``collect_moe_aux``); keeps
+        them for the log line."""
+        self.moe_aux = aux.detach()
+        return loss + collect_moe_aux(aux, *moe_aux_weights(self.config))
+
     def make_loss_fn(self, criterion: Callable) -> LossFn:
         """``loss_fn(model, batch) -> scalar loss`` on the device tensors of
         one prepared batch. The default is the supervised pair loss:
         ``criterion`` on the float32 logits of the stacked pairs (on the first
-        output of a model that returns a tuple)."""
+        output of a model that returns a tuple), plus the expert banks'
+        weighted aux terms when ``moe_aux_weights`` gives a non-zero balance
+        weight."""
+        with_aux = moe_aux_weights(self.config)[0] > 0
+
         def loss_fn(model, batch):
+            if with_aux:
+                out, aux = model(batch["samples"], with_aux=True)
+                return self.add_moe_aux(criterion(out.float(), batch["targets"]), aux)
             out = model(batch["samples"])
             out = out[0] if isinstance(out, tuple) else out
             return criterion(out.float(), batch["targets"])
@@ -369,6 +404,15 @@ class Trainer:
                 return None
         return total
 
+    def _moe_aux_text(self) -> str:
+        """The last update's aux terms for the ``Train:`` line: the mean over
+        the banks of the load balance (1.0 when balanced) and of the router
+        z-loss."""
+        if self.moe_aux is None:
+            return ""
+        lb, z = self.moe_aux.float().mean(0).tolist()
+        return f"\tmoe load_balance {lb:.4f} router_z {z:.4f}"
+
     def _log_mfu(self, step_seconds: float, step_flops: Optional[float],
                  model_type: str) -> str:
         """The epoch's model-FLOP MFU line: mean model FLOPs per update over
@@ -460,7 +504,8 @@ class Trainer:
                     f"eta {datetime.timedelta(seconds=int(etas))} lr {lr:.6f}\t"
                     f"time {batch_time.val:.4f} ({batch_time.avg:.4f})\t"
                     f"loss {loss_meter.val:.4f} ({loss_meter.avg:.4f})\t"
-                    f"grad_norm {norm_meter.val:.4f} ({norm_meter.avg:.4f})")
+                    f"grad_norm {norm_meter.val:.4f} ({norm_meter.avg:.4f})"
+                    + self._moe_aux_text())
             else:
                 batch_time.update((time.time() - end) / accum)
             end = time.time()

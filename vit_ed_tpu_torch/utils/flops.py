@@ -13,6 +13,10 @@ model's function needs, two FLOPs per multiply-add:
 - Q K^T and P V of every attention, at the rows it computes (the last pjs
   decoder block computes the CLS row only under the CLS short-circuit, but
   projects qkv over every row);
+- an expert bank (models/moe.py) as its router and, for each token, the
+  MLP of each of its ``route_k`` experts (what a gather would compute; the
+  one-hot dispatch and combine products and the capacity's empty slots are
+  a schedule's choice, like the recomputations below);
 - the backward as twice the forward: the gradient of each product's two
   operands, except the patch embedding's input (the images need none).
 
@@ -66,7 +70,13 @@ def pjs_step_flops(model, n_images: int, n_pairs: int) -> Tuple[int, int]:
         return 4 * n_q * n_k * c
 
     embed = 2 * s_e * in_chans * p * p * c
-    enc = s_e * c * (8 * c + 4 * hid) + attn(s_e, s_e)
+
+    def mlp(blk):                    # fc1 + fc2, or the router + k experts
+        bank = getattr(blk.mlp, "num_experts", 0)
+        return (s_e * c * (2 * bank + 4 * hid * blk.mlp.route_k) if bank
+                else 4 * s_e * c * hid)
+
+    enc = sum(8 * s_e * c * c + mlp(blk) + attn(s_e, s_e) for blk in model.blocks)
     # decoder block: self (qkv, proj), cross (q, kv over the context, proj), MLP
     dec = (s_d * c * (12 * c + 4 * hid) + 4 * s_e * c * c
            + attn(s_d, s_d) + attn(s_d, s_e))
@@ -75,7 +85,7 @@ def pjs_step_flops(model, n_images: int, n_pairs: int) -> Tuple[int, int]:
                + attn(1, s_d) + attn(1, s_e))
     n_full = model.c_depth - (1 if model.cls_shortcut else 0)
     per_pair = n_full * dec + (dec_cls if model.cls_shortcut else 0) + 2 * c * k
-    forward = (n_images * (2 * embed + len(model.blocks) * enc)
+    forward = (n_images * (2 * embed + enc)
                + n_pairs * per_pair)
     backward = 2 * forward - n_images * 2 * embed
     return forward, backward
