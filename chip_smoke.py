@@ -216,6 +216,27 @@ nothing from the JAX package. Phases, each printing its own lines:
     exported and replayed as in 20(b). The entry, the upcycling and the
     export run at 2 + 2 blocks: at full depth each checkpoint of the entry
     would write ~17 GB.
+22. several processes: two ranks (``WORLD_SIZE`` 2, ``LOCAL_RANK`` 0, gloo)
+    that share the card, each a child ``python chip_smoke.py --rank-child
+    <spec>`` driving the entry's own ``main(argv)`` at full width, random
+    weights from seed 0: (a) ``hisfrag --mode test`` on phase 5's 64 images
+    in row blocks of 16, assembled (the merged matrix against phase 5's)
+    and with ``TPU.SHARDED_EVAL_METRICS`` on disk (each rank's rows, the
+    metrics against phase 19a's), each rank's range, pairs/s and launches;
+    (b) the same sharded scan with rank 1 killed at its second row block,
+    rank 0 failing within the group's timeout, and a rerun that scores no
+    block with a ``.done`` marker, bit-equal to (a); (c) ``hisfrag --mode
+    train`` (2 x 8 images, 3 updates, bf16, DropPath 0.1): the ranks'
+    parameters bit-equal after every update, the pair kernels forward and
+    backward launched on every rank, and one f32 update (SGD) against one
+    process's on the concatenated batch with offset pair indices within
+    1e-4 of each parameter's max; (d) ``main`` at pjs patch8_64 (2 x 64
+    pairs, 3 updates) with the same checks and the 4-D kernels; (e) SIGTERM
+    to rank 1 alone during a DIV2K epoch: both ranks save at the same update
+    and exit 0, and the rerun's update count is an uninterrupted run's; (f)
+    one rank with the default ``cpu:gloo,cuda:nccl`` backend: one DIV2K
+    update through the same all-reduce, equal to the plain update bit for
+    bit. NCCL across two cards needs a host with two.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -234,6 +255,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -4711,6 +4733,514 @@ def phase_slice12(tmp, gen, scan5):
     return serve, moe
 
 
+# ---------------------------------------------------------------------------
+# slice 13: several processes (phase 22)
+# ---------------------------------------------------------------------------
+
+MP_TIMEOUT = 60           # seconds: the group's bound on every collective
+MP_SCAN_OPTS = ("DATA.BATCH_SIZE", "16")   # row blocks of 16: rank 1 holds three
+MP_HISFRAG_BATCH, MP_DIV2K_BATCH = 8, 64   # per rank and update
+MP_F32 = {"hisfrag": 4, "main": 64}        # per rank: the f32 update-1 check
+MP_PAIR_KERNELS = tuple(f"{n}{k}" for n in ("qkv", "qkv_cls", "kv") for k in ("", "_dq", "_dkv"))
+MP_HEADS_KERNELS = tuple(f"heads_{n}" for n in MP_PAIR_KERNELS)
+_MP_PROCS = []
+
+
+def param_digest(model):
+    """sha256 of every parameter's bytes, in order: equal digests are equal
+    parameters bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mp_f32_batch(kind, rank, n):
+    """A seeded host batch of ``n`` items of rank ``rank`` at full size."""
+    rng = np.random.default_rng(300 + rank)
+    if kind == "hisfrag":
+        return (rng.normal(size=(n, 512, 512, 3)).astype(np.float32),
+                np.repeat(np.arange(n // 2), 2).astype(np.int32))
+    return (rng.normal(size=(n, 2, 64, 64, 3)).astype(np.float32),
+            (rng.random((n, 4)) > 0.5).astype(np.float32))
+
+
+def rank_child(spec_path):
+    """One rank of a phase-22 run (``python chip_smoke.py --rank-child
+    <spec.json>``; WORLD_SIZE, RANK, LOCAL_RANK and MASTER_* from the
+    environment): joins the gloo group, drives the entry's ``main(argv)``
+    for each run of the spec with the launch counts reset before, and
+    writes what it saw to ``spec['result']``. ``kill_at_block`` makes rank 1
+    SIGKILL itself at that row block of a scan; ``f32`` adds one f32 update
+    on a seeded batch, dumped for the parent's one-process reference."""
+    import importlib
+    import signal
+
+    from vit_ed_tpu_torch.parallel import mesh
+    from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh.maybe_init_distributed(backend="gloo", timeout=MP_TIMEOUT)
+    rank = mesh.process_index()
+    entry = importlib.import_module(f"vit_ed_tpu_torch.{spec['entry']}")
+    cls = entry.HisfragTrainer if spec["entry"] == "hisfrag" else entry.DefaultTrainer
+    blocks, steps, reduce_ms = [], [], []
+    score_rows, train_step = PairwiseScorer.score_rows_block, cls.train_step
+    allreduce_grads = cls._allreduce_grads
+
+    def counted(self, *args, **kwargs):
+        if rank == 1 and len(blocks) + 1 == spec.get("kill_at_block"):
+            os.kill(os.getpid(), signal.SIGKILL)
+        blocks.append(len(args[2]))
+        return score_rows(self, *args, **kwargs)
+
+    def timed_reduce(self, loss_sum):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = allreduce_grads(self, loss_sum)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.time() - t0) * 1e3)
+        return out
+
+    def recorded(self, micro_batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = train_step(self, micro_batches)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.time() - t0) * 1e3, "reduce_ms": reduce_ms[-1],
+                      "digest": param_digest(self.model), "loss": loss.item()})
+        with open(spec["result"] + ".updates", "w") as f:   # the parent's SIGTERM cue
+            f.write(str(len(steps)))
+        return loss, norm
+
+    PairwiseScorer.score_rows_block, cls.train_step = counted, recorded
+    cls._allreduce_grads = timed_reduce
+    result = {"rank": rank, "runs": []}
+    for i, argv in enumerate(spec["runs"]):
+        A.reset_launch_counts()
+        blocks.clear()
+        steps.clear()
+        t0 = time.time()
+        out = entry.main(argv)
+        torch.cuda.synchronize()
+        run = {"seconds": time.time() - t0, "launches": nonzero(A.launches),
+               "blocks": len(blocks), "steps": list(steps)}
+        if isinstance(out, tuple):      # hisfrag --mode test
+            metrics, mat, _names, scorer = out
+            np.save(f"{spec['result']}.{i}.npy", np.asarray(mat))
+            run.update(metrics=[float(m) for m in metrics], pairs=scorer.pairs_done,
+                       scan_seconds=scorer.scan_seconds,
+                       row_range=[scorer.row_range.start, scorer.row_range.stop])
+        else:
+            run.update(step=out.step, preempted=out.preempted,
+                       steps_per_epoch=len(out.get_dataloader("train")),
+                       epochs=out.config.TRAIN.EPOCHS)
+        result["runs"].append(run)
+    if spec.get("f32"):
+        f32 = spec["f32"]
+        trainer = cls(entry.parse_option(f32["argv"]))
+        trainer.setup_training(1)
+        np.random.seed(rank)
+        batch = trainer.prepare_data(*mp_f32_batch(spec["entry"], rank, f32["images"]))
+        np.savez(f"{spec['result']}.f32batch.npz", **batch)
+        trainer.train_step([batch])
+        torch.save({n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+                   f"{spec['result']}.f32params.pt")
+    with open(spec["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+class MpRun:
+    """Two ranks of ``python chip_smoke.py --rank-child`` sharing the card
+    over gloo."""
+
+    def __init__(self, tmp, name, entry, runs, kill_at_block=None, f32=None):
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.name, self.procs, self.results, self.logs = name, [], [], []
+        self.t0 = time.time()
+        for rank in range(2):
+            res = os.path.join(tmp, f"mp_{name}_rank{rank}.json")
+            spec = {"entry": entry, "runs": runs, "result": res,
+                    "kill_at_block": kill_at_block, "f32": f32}
+            with open(res + ".spec", "w") as f:
+                json.dump(spec, f)
+            for old in (res, res + ".updates"):
+                if os.path.exists(old):
+                    os.unlink(old)
+            env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(rank), "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                   "PYTHONUNBUFFERED": "1"}
+            log = os.path.join(tmp, f"mp_{name}_rank{rank}.log")
+            with open(log, "w") as f:
+                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                         "--rank-child", res + ".spec"], cwd=ROOT, env=env,
+                                        stdout=f, stderr=subprocess.STDOUT)
+            _MP_PROCS.append(proc)
+            self.procs.append(proc)
+            self.results.append(res)
+            self.logs.append(log)
+
+    def tail(self, rank, n=3000):
+        with open(self.logs[rank]) as f:
+            return f.read()[-n:]
+
+    def wait(self, rank, timeout):
+        """The rank's exit code, or None if it still runs after ``timeout``."""
+        try:
+            return self.procs[rank].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return None
+
+    def finish(self, timeout=600):
+        """Both ranks' results; raises unless both exit 0."""
+        for rank in range(2):
+            rc = self.wait(rank, max(timeout - (time.time() - self.t0), 1))
+            if rc != 0:
+                raise AssertionError(f"phase 22 {self.name}: rank {rank} exit {rc}:\n"
+                                     + self.tail(rank))
+        self.seconds = time.time() - self.t0
+        out = []
+        for res in self.results:
+            with open(res) as f:
+                out.append(json.load(f))
+        return out
+
+
+def mp_sigterm_at_first_update(run):
+    """22e: SIGTERM to rank 1 alone once it has applied its first update."""
+    import signal
+
+    cue = run.results[1] + ".updates"
+    while run.procs[1].poll() is None:
+        if os.path.exists(cue):
+            run.procs[1].send_signal(signal.SIGTERM)
+            run.sigterm_at = time.time() - run.t0
+            return
+        time.sleep(0.02)
+
+
+def mp_stop_all():
+    """Kill every rank of phase 22 still running."""
+    for proc in _MP_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def mp_rows_gap(a, b):
+    """(rows equal bit for bit, of how many, max |a - b|) of two float16
+    matrices, row by row."""
+    same = sum(np.array_equal(x, y) for x, y in zip(a, b))
+    return same, len(a), float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max())
+
+
+def mp_scan_print(card, label, results, run):
+    for r in results:
+        x = r["runs"][run]
+        print(f"  {card}: {label} rank {r['rank']}: rows {x['row_range'][0]}:"
+              f"{x['row_range'][1]}, {x['blocks']} row blocks scored, {x['pairs']} pairs "
+              f"in {x['scan_seconds']:.3f}s = {x['pairs'] / max(x['scan_seconds'], 1e-9):.1f} "
+              f"pairs/s (two ranks time-slice one card); launches {x['launches']}",
+              flush=True)
+        for name in MAIN_PATH:
+            if x["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"rank {r['rank']} never launched {name}")
+
+
+def mp_train_check(card, label, results, kernels):
+    """Both ranks' updates: parameters bit-equal after every one, every
+    kernel of ``kernels`` launched on every rank."""
+    for r in results:
+        x = r["runs"][0]
+        missing = [k for k in kernels if x["launches"].get(k, 0) <= 0]
+        print(f"  {card}: {label} rank {r['rank']}: {len(x['steps'])} updates, losses "
+              f"{[round(s['loss'], 4) for s in x['steps']]}; ms per update (host clock "
+              f"around the step, the ranks time-slice one card) "
+              f"{[round(s['ms'], 1) for s in x['steps']]}, of it the gradient all-reduce "
+              f"over gloo {[round(s['reduce_ms'], 1) for s in x['steps']]}; "
+              f"{x['seconds']:.1f}s with model build, loader and validates; launches "
+              f"{x['launches']}", flush=True)
+        if missing:
+            raise AssertionError(f"{label}: rank {r['rank']} never launched {missing}")
+    d0 = [s["digest"] for s in results[0]["runs"][0]["steps"]]
+    d1 = [s["digest"] for s in results[1]["runs"][0]["steps"]]
+    print(f"  {label}: parameters bit-equal across the ranks after each update: "
+          f"{[a == b for a, b in zip(d0, d1)]}", flush=True)
+    if len(d0) < 3 or d0 != d1:
+        raise AssertionError(f"{label}: the ranks' parameters differ or < 3 updates")
+
+
+def mp_one_process(tmp, run, entry_name, argv, images):
+    """The f32 update of both ranks' batches concatenated, in this process
+    (rank 1's pair indices offset by the local batch), against rank 0's:
+    the worst max |rank 0 - one process| / max |one process| over the
+    parameters."""
+    import importlib
+
+    entry = importlib.import_module(f"vit_ed_tpu_torch.{entry_name}")
+    cls = entry.HisfragTrainer if entry_name == "hisfrag" else entry.DefaultTrainer
+    parts = [dict(np.load(res + ".f32batch.npz")) for res in run.results]
+    if "gi" in parts[1]:
+        for k in ("gi", "gj"):
+            parts[1][k] = parts[1][k] + images
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    trainer = cls(entry.parse_option(argv))
+    trainer.setup_training(1)
+    trainer.train_step([batch])
+    got = torch.load(run.results[0] + ".f32params.pt", weights_only=True)
+    worst, at = 0.0, ""
+    for name, p in trainer.model.named_parameters():
+        ref = p.detach().cpu()
+        gap = ((got[name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if gap > worst:
+            worst, at = gap, name
+    del trainer
+    torch.cuda.empty_cache()
+    return worst, at
+
+
+def mp_f32_argv(argv_fn, tag, batch):
+    return argv_fn(tag) + ["--disable_amp", "--batch-size", str(batch), "--opts",
+                           "MODEL.DROP_PATH_RATE", "0.1", "TRAIN.AUTO_RESUME", "False",
+                           "TRAIN.WARMUP_EPOCHS", "0", "TRAIN.OPTIMIZER.NAME", "sgd"]
+
+
+def mp_link_subset(src, dst, n_train, n_valid):
+    for sub, n in (("DIV2K_train_HR", n_train), ("DIV2K_valid_HR", n_valid)):
+        os.makedirs(os.path.join(dst, sub), exist_ok=True)
+        for name in sorted(os.listdir(os.path.join(src, sub)))[:n]:
+            os.link(os.path.join(src, sub, name), os.path.join(dst, sub, name))
+
+
+def phase_nccl_one_rank(tmp, data):
+    """22f: one DIV2K update through the all-reduce over NCCL (a group of one
+    rank on the card, the default backend) against the plain update."""
+    import torch.distributed as dist
+
+    from vit_ed_tpu_torch.main import DefaultTrainer, parse_option
+    from vit_ed_tpu_torch.parallel.mesh import CARD_BACKEND
+
+    argv = puzzle_argv(data, os.path.join(tmp, "out"), "mp_nccl", "train",
+                       "--batch-size", str(MP_DIV2K_BATCH), "--opts", "TRAIN.AUTO_RESUME",
+                       "False", "TRAIN.WARMUP_EPOCHS", "0")
+    samples, targets = mp_f32_batch("main", 0, MP_DIV2K_BATCH)
+    batch = {"samples": samples, "targets": targets}
+    states = {}
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        calls.append((tensor.device.type, tensor.numel()))
+        return all_reduce(tensor, *args, **kwargs)
+
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for mode in ("plain", "nccl"):
+        if mode == "nccl":
+            dist.init_process_group(CARD_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                    world_size=1, rank=0)
+            dist.all_reduce = counted
+        try:
+            trainer = DefaultTrainer(parse_option(argv))
+            trainer.setup_training(1)
+            loss, _ = trainer.train_step([batch])
+            states[mode] = ({n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+                            loss.item(), trainer.data_parallel)
+            del trainer
+        finally:
+            if mode == "nccl":
+                dist.all_reduce = all_reduce
+                backend = dist.get_backend()
+                dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    same = all(torch.equal(states["plain"][0][n], states["nccl"][0][n])
+               for n in states["plain"][0])
+    print(f"  {card_line()}: 22f: one rank, backend {backend}: all-reduce calls "
+          f"{calls} (the step's gradients and loss, on the card, over NCCL); loss "
+          f"{states['nccl'][1]:.6f} vs plain {states['plain'][1]:.6f}; parameters equal "
+          f"the plain one-process update bit for bit {same}. NCCL across two cards is "
+          f"unverified: this host has one card", flush=True)
+    if not (same and states["nccl"][2] and not states["plain"][2]
+            and states["nccl"][1] == states["plain"][1]
+            and calls and all(d == "cuda" for d, _ in calls)):
+        raise AssertionError("22f: the NCCL all-reduce step differs from the plain one")
+
+
+def phase_multiprocess(tmp, scan5):
+    """Phase 22: the port on two processes that share the card over gloo
+    (each a child running the entry's own main(argv)), and one NCCL rank."""
+    import glob
+    import signal
+
+    from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
+
+    card = card_line()
+    t_phase = time.time()
+    print("== phase 22: two processes (WORLD_SIZE 2, LOCAL_RANK 0, gloo) on one card, "
+          "full width, seed 0; then one NCCL rank. Two ranks that time-slice one card "
+          "check correctness: their times are no speedup", flush=True)
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    scan_argv = lambda tag, *o: hisfrag_test_argv(data, out, tag, *MP_SCAN_OPTS, *o)  # noqa: E731
+    tdata = os.path.join(tmp, "mp_train")
+    write_corpus(tdata, writers=3, sub="train", seed=1)    # 8 train images: 3 updates of 8
+    ddata, edata = os.path.join(tmp, "mp_div2k"), os.path.join(tmp, "div2k")
+    mp_link_subset(edata, ddata, 77, 8)                      # 385 items: 3 updates of 2 x 64
+    h_argv = lambda tag: train_argv(tdata, out, tag)          # noqa: E731
+    d_argv = lambda tag: puzzle_argv(ddata, out, tag, "train")  # noqa: E731
+    e_argv = lambda tag: puzzle_argv(edata, out, tag, "train")  # noqa: E731
+    once = ("TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "1")
+    try:
+        # 22e first (its run, the SIGTERM and the rerun are the longest
+        # chain), then 22a, 22b's killed scan and 22c
+        e_run = [e_argv("mp_e") + ["--batch-size", str(MP_DIV2K_BATCH), "--opts", *once]]
+        e = MpRun(tmp, "22e", "main", e_run)
+        cue = threading.Thread(target=mp_sigterm_at_first_update, args=(e,), daemon=True)
+        cue.start()
+        a = MpRun(tmp, "22a", "hisfrag", [scan_argv("mp_a"), scan_argv("mp_s", *SHARDED_OPTS)])
+        k = MpRun(tmp, "22b", "hisfrag", [scan_argv("mp_k", *SHARDED_OPTS)], kill_at_block=2)
+        c = MpRun(tmp, "22c", "hisfrag",
+                  [h_argv("mp_c") + ["--batch-size", str(MP_HISFRAG_BATCH), "--opts", *once]],
+                  f32={"argv": mp_f32_argv(h_argv, "mp_c32", MP_F32["hisfrag"]),
+                       "images": MP_F32["hisfrag"]})
+        rc1 = k.wait(1, 600)
+        t_kill = time.time()
+        rc0 = k.wait(0, MP_TIMEOUT + 30)
+        waited = time.time() - t_kill
+        kdir = os.path.join(out, "hisfrag20_patch16_512", "mp_k")
+        done = {r: len(glob.glob(os.path.join(kdir, f"test_rank{r}_rows*.done")))
+                for r in range(2)}
+        print(f"  22b: rank 1 killed itself at its second row block (exit {rc1}); rank 0 "
+              f"exit {rc0} {waited:.1f}s later (group timeout {MP_TIMEOUT}s); .done "
+              f"markers left {done}", flush=True)
+        if rc1 != -signal.SIGKILL or rc0 in (None, 0) or done[1] != 1:
+            raise AssertionError("22b: the killed scan did not stop as it should")
+        # then the resumed scan and 22d, while 22a, 22c and 22e end
+        k2 = MpRun(tmp, "22b_rerun", "hisfrag", [scan_argv("mp_k", *SHARDED_OPTS)])
+        d = MpRun(tmp, "22d", "main",
+                  [d_argv("mp_d") + ["--batch-size", str(MP_DIV2K_BATCH), "--opts", *once]],
+                  f32={"argv": mp_f32_argv(d_argv, "mp_d32", MP_F32["main"]),
+                       "images": MP_F32["main"]})
+
+        re_ = e.finish()
+        cue.join()
+        print(f"== phase 22e: SIGTERM to rank 1 only during a DIV2K epoch "
+              f"({e.seconds:.1f}s)", flush=True)
+        edir = os.path.join(out, "div2k_erosion7_4bin_patch8_64", "mp_e")
+        tree = load_checkpoint(os.path.join(edir, "checkpoint.ckpt"))
+        said = [r["runs"][0] for r in re_]
+        print(f"  SIGTERM to rank 1 {getattr(e, 'sigterm_at', float('nan')):.1f}s after the "
+              f"launch, after its first update; both ranks preempted "
+              f"{[s['preempted'] for s in said]} after update "
+              f"{[s['step'] for s in said]} of {said[0]['steps_per_epoch']}; checkpoint "
+              f"step {tree['step']}, in_epoch_opt_steps {tree['in_epoch_opt_steps']}",
+              flush=True)
+        if not (all(s["preempted"] for s in said) and said[0]["step"] == said[1]["step"]
+                == tree["step"] == tree["in_epoch_opt_steps"]
+                and 0 < tree["step"] < said[0]["steps_per_epoch"]):
+            raise AssertionError("22e: the ranks did not save together mid-epoch")
+        e2 = MpRun(tmp, "22e_rerun", "main", e_run)
+
+        ra = a.finish()
+        print(f"== phase 22a: python -m vit_ed_tpu_torch.hisfrag --mode test over 2 ranks, "
+              f"N = {len(scan5['dm'])}, row blocks of 16 ({a.seconds:.1f}s for both runs)",
+              flush=True)
+        mp_scan_print(card, "assembled", ra, 0)
+        mp_scan_print(card, "sharded, slab on disk", ra, 1)
+        dm0, dm1 = (np.load(f"{res}.0.npy") for res in a.results)
+        same, n_rows, gap = mp_rows_gap(dm0, scan5["dm"])
+        print(f"  assembled: both ranks' matrices equal {np.array_equal(dm0, dm1)}; "
+              f"against phase 5's (one process, one row block of 64): {same} of {n_rows} "
+              f"rows bit-equal, max |distance gap| {gap:.3e} (tol 1e-2: cuBLAS may pick "
+              f"another GEMM algorithm for another M)", flush=True)
+        if not np.array_equal(dm0, dm1) or gap > 1e-2:
+            raise AssertionError("22a: the merged matrix differs")
+        m_a = ra[0]["runs"][0]["metrics"]
+        for r in ra:
+            lo, hi = r["runs"][1]["row_range"]
+            rows = np.load(f"{a.results[r['rank']]}.1.npy")
+            dist_rows = (1.0 - rows.astype(np.float32)).astype(np.float16)
+            if not (np.array_equal(dist_rows, dm0[lo:hi]) and np.allclose(
+                    r["runs"][1]["metrics"], m_a, rtol=1e-12, atol=0)):
+                raise AssertionError(f"22a: rank {r['rank']}'s sharded rows or metrics differ")
+        m19 = [float(m) for m in scan5["metrics"]]
+        mgap = max(abs(x - y) for x, y in zip(m_a, m19))
+        print(f"  sharded: each rank's rows equal the merged matrix's rows bit for bit, "
+              f"its merged partials its metrics within rtol 1e-12; metrics {m_a} "
+              f"(phase 19a: {m19}, max gap {mgap:.2e}; "
+              f"{'rows equal phase 5' if same == n_rows else 'rows differ from phase 5 within 1e-2'})",
+              flush=True)
+        if (same == n_rows and mgap > 1e-12) or mgap > 2e-2:
+            raise AssertionError("22a: the sharded metrics differ from phase 19a's")
+
+        rc = c.finish()
+        print(f"== phase 22c: python -m vit_ed_tpu_torch.hisfrag --mode train over 2 ranks, "
+              f"2 x {MP_HISFRAG_BATCH} images, bf16, DropPath 0.1 ({c.seconds:.1f}s)",
+              flush=True)
+        mp_train_check(card, "22c", rc, MP_PAIR_KERNELS)
+        worst, at = mp_one_process(tmp, c, "hisfrag", mp_f32_argv(
+            h_argv, "mp_c1p", 2 * MP_F32["hisfrag"]), MP_F32["hisfrag"])
+        print(f"  f32 update 1 (2 x {MP_F32['hisfrag']} images, DropPath 0.1, SGD) against "
+              f"one process on the concatenated batch with offset pair indices: worst "
+              f"max|gap|/max {worst:.3e} at {at} (tol 1e-4)", flush=True)
+        if worst > 1e-4:
+            raise AssertionError("22c: the two-rank update differs from one process's")
+
+        rk = k2.finish()
+        print(f"== phase 22b: the killed scan rerun ({k2.seconds:.1f}s)", flush=True)
+        for r in rk:
+            full = ra[r["rank"]]["runs"][1]["blocks"]
+            redo = r["runs"][0]["blocks"]
+            rows = np.load(f"{k2.results[r['rank']]}.0.npy")
+            same_rows = np.array_equal(rows, np.load(f"{a.results[r['rank']]}.1.npy"))
+            print(f"  rank {r['rank']}: {redo} of {full} row blocks scored again "
+                  f"({done[r['rank']]} had a .done marker); rows equal 22a's bit for bit "
+                  f"{same_rows}", flush=True)
+            if redo != full - done[r["rank"]] or not same_rows:
+                raise AssertionError("22b: the rerun rescored a finished block or differs")
+
+        rd = d.finish()
+        print(f"== phase 22d: python -m vit_ed_tpu_torch.main --mode train over 2 ranks, "
+              f"pjs patch8_64, 2 x {MP_DIV2K_BATCH} pairs, bf16, DropPath 0.1 "
+              f"({d.seconds:.1f}s)", flush=True)
+        mp_train_check(card, "22d", rd, MP_HEADS_KERNELS)
+        worst, at = mp_one_process(tmp, d, "main", mp_f32_argv(
+            d_argv, "mp_d1p", 2 * MP_F32["main"]), MP_F32["main"])
+        print(f"  f32 update 1 (2 x {MP_F32['main']} pairs, DropPath 0.1, SGD) against one "
+              f"process on the concatenated batch: worst max|gap|/max {worst:.3e} at {at} "
+              f"(tol 1e-4)", flush=True)
+        if worst > 1e-4:
+            raise AssertionError("22d: the two-rank update differs from one process's")
+
+        re2 = e2.finish()
+        total = [r["runs"][0]["step"] for r in re2]
+        want = said[0]["steps_per_epoch"] * said[0]["epochs"]
+        print(f"  22e rerun ({e2.seconds:.1f}s): updates {total} on the ranks, an uninterrupted "
+              f"run's {want}; bit-equal ranks after its updates "
+              f"{[s['digest'] for s in re2[0]['runs'][0]['steps']] == [s['digest'] for s in re2[1]['runs'][0]['steps']]}",
+              flush=True)
+        if total != [want, want] or (
+                [s["digest"] for s in re2[0]["runs"][0]["steps"]]
+                != [s["digest"] for s in re2[1]["runs"][0]["steps"]]):
+            raise AssertionError("22e: the rerun did not finish the epoch as one")
+    finally:
+        mp_stop_all()
+
+    print("== phase 22f: one rank with the default backend (cpu:gloo,cuda:nccl)", flush=True)
+    phase_nccl_one_rank(tmp, ddata)
+    print(f"  phase 22 took {time.time() - t_phase:.1f}s on {card}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -4753,6 +5283,7 @@ def main():
         pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
         phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt)
         phase_slice12(tmp, gen, scan5)
+        phase_multiprocess(tmp, scan5)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -4858,4 +5389,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2]))
     sys.exit(main())

@@ -116,11 +116,11 @@ def test_resume_skips_finished_blocks(setup, tmp_path):
                                      "assemble": False, "out_dir": "unused"},
                                     {"world_size": 2, "assemble": False}])
 def test_unported_options_raise(setup, kwargs):
-    """Several processes are not ported (ROADMAP queue A item 7b), with or
-    without the sharded test path's options, which one process runs
-    (tests/test_torch_sharded.py), as it runs int8 scoring
-    (tests/test_torch_quant.py)."""
+    """``world_size`` 2 needs two processes in a group (they score their row
+    ranges and merge, tests/test_torch_multiprocess.py): called from one
+    process it raises before it scores anything, with or without the
+    sharded test path's options and int8 scoring."""
     _jm, _params, model, imgs = setup
     scorer = PairwiseScorer(model, int8=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7b"):
+    with pytest.raises(ValueError, match="process group"):
         scorer.score_dataset(ArrayDataset(imgs), batch_size=4, **kwargs)

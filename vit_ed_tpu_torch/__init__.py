@@ -24,8 +24,10 @@ two scripts that import it (``visualise_attentions``,
                 derivative, the pair gather with a fixed-order backward,
                 dynamic int8 GEMMs for scoring, attention explainability
   models     -- ViT-ED (timm key layout), JAX-param conversion, factory
-  parallel   -- the single-process pair scorer (row-sharded and
-                mixed-chunk schedules, ``score_dense`` for puzzle pieces)
+  parallel   -- the pair scorer (row-sharded and mixed-chunk schedules,
+                split over processes by rows, ``score_dense`` for puzzle
+                pieces) and the ``torch.distributed`` rendezvous and host
+                collectives (``mesh``)
   solver     -- the Paikin-Tal puzzle solver, its accuracies, and image
                 reading / LAB conversion equal to OpenCV's without OpenCV
   train      -- losses, schedules + optimizers, checkpoints, the Trainer

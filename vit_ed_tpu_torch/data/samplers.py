@@ -1,8 +1,9 @@
 """Index samplers: the port's copies of ``DistributedRepeatSampler``,
-``DistributedEvalSampler`` and ``MPerClassSampler``
+``DistributedEvalSampler``, ``balanced_row_ranges``,
+``DistributedIndicatesSampler`` and ``MPerClassSampler``
 (``vit_ed_tpu/data/samplers.py``; numpy only, so one seed yields the same
-index stream in both packages). The distributed samplers keep their
-``num_replicas`` / ``rank`` signatures; the port runs one replica."""
+index stream in both packages). The trainers give the distributed samplers
+``num_replicas`` = the process count and ``rank`` = this process's."""
 
 from __future__ import annotations
 
@@ -84,6 +85,43 @@ class DistributedEvalSampler(_EpochSampler):
 
     def _share(self, indices):
         return indices[self.rank:self.dataset_len:self.num_replicas]
+
+
+def balanced_row_ranges(row_of_pair: np.ndarray, num_replicas: int
+                        ) -> List[range]:
+    """Contiguous x1-row ranges of a triangular pair list, one per replica,
+    with near-equal pair counts: the sorted pair list is cut into
+    ``num_replicas`` chunks of ``ceil(pairs / replicas)`` and each cut is
+    snapped to a row boundary, so that every replica owns whole rows."""
+    n_pairs = len(row_of_pair)
+    per = math.ceil(n_pairs / num_replicas)
+    cuts = [0]
+    for r in range(1, num_replicas):
+        idx = min(r * per, n_pairs - 1)
+        row = int(row_of_pair[idx])
+        # snap to the first pair of this row
+        if idx > 0 and row_of_pair[idx - 1] == row:
+            cuts.append(row + 1 if row + 1 > cuts[-1] else cuts[-1])
+        else:
+            cuts.append(max(row, cuts[-1]))
+    cuts.append(int(row_of_pair[-1]) + 1)
+    return [range(cuts[i], cuts[i + 1]) for i in range(num_replicas)]
+
+
+class DistributedIndicatesSampler:
+    """The rows (sample indices) of ``balanced_row_ranges`` that ``rank``
+    owns: the x1 rows of its share of the O(N^2) scan."""
+
+    def __init__(self, row_of_pair: np.ndarray, num_replicas: int, rank: int):
+        ranges = balanced_row_ranges(np.asarray(row_of_pair), num_replicas)
+        self.samples = list(ranges[rank])
+        self.num_samples = len(self.samples)
+
+    def __iter__(self):
+        return iter(self.samples)
+
+    def __len__(self):
+        return self.num_samples
 
 
 class MPerClassSampler:

@@ -11,8 +11,11 @@ stacked pair (center crop to DATA.IMG_SIZE, normalize); the logits fill a
 symmetric float16 similarity matrix (the JAX entry's dtype, which moves
 mAP ties), ``1 - similarity`` is the distance, and the wi19 metrics of the
 images' fragment labels are logged as ``mAP ... Top 1 ... Pr@k10 ...
-Pr@k100 ...``. One process: ``world_size > 1`` raises (several processes
-are ROADMAP queue A item 7). Runs on the CUDA card unless ``--device cpu``.
+Pr@k100 ...``. Several processes (``torchrun``) split the pairs with a
+strided ``DistributedEvalSampler`` and gather the predictions, padded to a
+common length with -1 rows and cut back, as the JAX entry does; every rank
+then holds the whole matrix. Runs on the CUDA card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -32,16 +35,16 @@ from vit_ed_tpu_torch.data.loader import DataLoader
 from vit_ed_tpu_torch.data.samplers import DistributedEvalSampler
 from vit_ed_tpu_torch.hisfrag import HisfragTrainer
 from vit_ed_tpu_torch.metrics import get_metrics
+from vit_ed_tpu_torch.parallel.mesh import check_world, process_allgather
 from vit_ed_tpu_torch.utils import AverageMeter
 
 
 def eval_standard(config, trainer, logger, world_size: int = 1, rank: int = 0):
     """(float32 distance matrix [n, n], image names, fragment labels) of
-    the Geshaem images under DATA.DATA_PATH."""
-    if world_size > 1:
-        raise NotImplementedError(
-            "geshame_evaluation on several processes is not ported yet "
-            "(ROADMAP queue A item 7): run it with one")
+    the Geshaem images under DATA.DATA_PATH; ``rank`` of ``world_size``
+    processes scores its share of the pairs, and every rank calls this
+    together."""
+    check_world(world_size)
     transform = T.OneImgEval(config.DATA.IMG_SIZE, crop=True)
     dataset = GeshaemPatch(config.DATA.DATA_PATH, GeshaemPatch.Split.VAL,
                            transform=transform)
@@ -75,6 +78,13 @@ def eval_standard(config, trainer, logger, world_size: int = 1, rank: int = 0):
 
     predicts = (np.concatenate(predicts, axis=0) if predicts
                 else np.zeros((0, 3), np.float32))
+    if world_size > 1:
+        # a common length, then the -1 padding rows go
+        max_n = int(len(dataset.pairs) * 1.2 / world_size) + 1
+        padded = np.full((max_n, 3), -1, np.float32)
+        padded[: len(predicts)] = predicts
+        gathered = process_allgather(padded).reshape(-1, 3)
+        predicts = gathered[gathered[:, 0] != -1]
     assert len(predicts) == len(dataset.pairs), \
         f"Incorrect size {predicts.shape} vs {dataset.pairs.shape}"
     size = len(dataset.data)
@@ -118,7 +128,7 @@ def main(argv: Optional[List[str]] = None):
     logger = trainer.logger
     start_time = time.time()
     distance_matrix, img_names, fragment_idxs = eval_standard(
-        trainer.config, trainer, logger)
+        trainer.config, trainer, logger, trainer.world_size, trainer.rank)
     logger.info("Starting to calculate performance...")
     logger.info(f"Distance matrix shape: {distance_matrix.shape}")
     metrics = get_metrics(distance_matrix, fragment_idxs)

@@ -28,6 +28,14 @@ blocks of 2,048 rows to wi19 partial sums, logs the metrics and writes no
 CSV, as the JAX entry's ``_test_sharded``. ``TPU.INT8_SCORE`` scores with
 the blocks' GEMMs in int8. Runs on the CUDA card unless ``--device cpu``
 is given.
+
+Several processes (``torchrun --nproc_per_node N -m
+vit_ed_tpu_torch.hisfrag ...``): training mines each rank's pairs inside its
+own local batch (its pair indices read its own images) and the loss is the
+global masked mean, the local masked sum over the global live-pair count;
+the scans split the rows (``score_dataset(rank=, world_size=)``), the
+assembled matrix is merged on every rank and the sharded metrics' partials
+are gathered, and rank 0 alone logs the metrics and writes the CSV.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from vit_ed_tpu_torch.data.samplers import MPerClassSampler
 from vit_ed_tpu_torch.metrics import get_metrics
 from vit_ed_tpu_torch.metrics.wi19_sharded import merge_partials, row_partials
 from vit_ed_tpu_torch.ops.gather import gather_rows
+from vit_ed_tpu_torch.parallel.mesh import allreduce_sum, process_allgather
 from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
 from vit_ed_tpu_torch.train.engine import Trainer, moe_aux_weights
 from vit_ed_tpu_torch.train.losses import bce_with_logits, masked_bce_with_logits
@@ -126,7 +135,7 @@ class HisfragTrainer(Trainer):
                                         transforms=self.get_transforms())
         sampler = MPerClassSampler(dataset.data_labels, m=3,
                                    length_before_new_iter=len(dataset) * repeat,
-                                   seed=self.config.SEED)
+                                   seed=self.config.SEED + self.rank)
         loader = DataLoader(dataset, sampler=sampler,
                             batch_size=self.config.DATA.BATCH_SIZE,
                             num_workers=self.config.DATA.NUM_WORKERS,
@@ -139,7 +148,25 @@ class HisfragTrainer(Trainer):
     def max_pairs(self) -> int:
         if self.config.TPU.MAX_TRAIN_PAIRS:
             return self.config.TPU.MAX_TRAIN_PAIRS
-        return int(1 + self.NEG_PAIR_RATIO) * self.config.DATA.BATCH_SIZE + 1
+        # + the global device count, as in the JAX entry: it moves the
+        # miner's np.random.permutation cut
+        return (int(1 + self.NEG_PAIR_RATIO) * self.config.DATA.BATCH_SIZE
+                + self.world_size)
+
+    def rank_loss_weight(self) -> float:
+        """1: a "mean" loss is already this rank's share of the global mean
+        (``share_batches``), and a "sum" adds up over the ranks."""
+        return 1.0
+
+    def share_batches(self, micro_batches) -> None:
+        """A "mean" loss divides by the global batch's live pairs: one
+        all-reduce of the micro-batches' counts (``pair_count``)."""
+        if self.LOSS_REDUCTION != "mean":
+            return
+        counts = allreduce_sum(np.asarray(
+            [int(b["pair_mask"].sum()) for b in micro_batches], np.int64))
+        for b, c in zip(micro_batches, counts):
+            b["pair_count"] = np.asarray([max(int(c), 1)], np.float32)
 
     def prepare_data(self, samples, targets):
         """Host-side in-batch pair mining into a fixed-size padded pair
@@ -211,6 +238,10 @@ class HisfragTrainer(Trainer):
             f = gather_rows(feats, batch["gj"].long())
             t = gather_rows(tokens, batch["gi"].long())
             logits = model.score_tokens(f, t)
+            if "pair_count" in batch:   # several processes: the global mean
+                return masked_bce_with_logits(
+                    logits.float(), batch["pair_targets"], batch["pair_mask"],
+                    reduction="sum") / batch["pair_count"].reshape(())
             loss = masked_bce_with_logits(logits.float(), batch["pair_targets"],
                                           batch["pair_mask"],
                                           reduction=reduction)
@@ -237,11 +268,12 @@ class HisfragTrainer(Trainer):
         dataset, scorer = self._eval_set(split)
         if remove_cache_file:
             for f in glob.glob(os.path.join(config.OUTPUT,
-                                            f"{split.value}_rank*.npz")):
+                                            f"{split.value}_rank{self.rank}_*.npz")):
                 os.unlink(f)
         sim = scorer.score_dataset(dataset, batch_size=config.DATA.BATCH_SIZE,
                                    logger=self.logger, out_dir=config.OUTPUT,
-                                   tag=split.value,
+                                   tag=split.value, rank=self.rank,
+                                   world_size=self.world_size,
                                    num_workers=config.DATA.NUM_WORKERS)
         distance_matrix = (1.0 - sim.astype(np.float32)).astype(np.float16)
         names = [os.path.splitext(os.path.basename(s))[0]
@@ -254,8 +286,9 @@ class HisfragTrainer(Trainer):
         metrics = get_metrics(distance_matrix.astype(np.float32),
                               np.asarray(labels))
         m_ap, top1, pr_k10, pr_k100 = metrics
-        self.logger.info(f"mAP {m_ap:.3f}\tTop 1 {top1:.3f}\t"
-                         f"Pr@k10 {pr_k10:.3f}\tPr@k100 {pr_k100:.3f}")
+        if self.rank == 0:
+            self.logger.info(f"mAP {m_ap:.3f}\tTop 1 {top1:.3f}\t"
+                             f"Pr@k10 {pr_k10:.3f}\tPr@k100 {pr_k100:.3f}")
         return metrics
 
     def test(self):
@@ -271,26 +304,30 @@ class HisfragTrainer(Trainer):
                 "builds the N x N matrix)")
         distance_matrix, names, scorer = self.validate_dataloader(Split.TEST)
         metrics = self._metrics(distance_matrix, names)
-        write_distance_csv(
-            os.path.join(self.config.OUTPUT, "distance_matrix_rank0.csv"),
-            distance_matrix, names)
+        if self.rank == 0:
+            write_distance_csv(
+                os.path.join(self.config.OUTPUT, "distance_matrix_rank0.csv"),
+                distance_matrix, names)
         return metrics, distance_matrix, names, scorer
 
     def _test_sharded(self):
         """``TPU.SHARDED_EVAL_METRICS``: score complete rows without
         assembling the N x N matrix (on a memmap with
         ``TPU.EVAL_SLAB_ON_DISK``), reduce them in blocks of 2,048 rows to
-        wi19 partial sums and merge them; no CSV. Each block's distances go
-        through the assembled path's chain, float32 then float16, element
-        for element, so that ties rank the same. Returns ``(metrics, rows,
-        names, scorer)``, ``rows`` the [N, N] float16 scores."""
+        wi19 partial sums and merge them with every rank's (one
+        ``process_allgather``); no CSV. Each block's distances go through
+        the assembled path's chain, float32 then float16, element for
+        element, so that ties rank the same. Returns ``(metrics, rows,
+        names, scorer)``, ``rows`` this rank's complete rows of the float16
+        scores (all N of them on one process; ``scorer.row_range`` says
+        which)."""
         config = self.config
         dataset, scorer = self._eval_set(Split.TEST)
         rows, row_range = scorer.score_dataset(
             dataset, batch_size=config.DATA.BATCH_SIZE, logger=self.logger,
-            out_dir=config.OUTPUT, tag=Split.TEST.value,
-            num_workers=config.DATA.NUM_WORKERS, assemble=False,
-            slab_on_disk=config.TPU.EVAL_SLAB_ON_DISK)
+            out_dir=config.OUTPUT, tag=Split.TEST.value, rank=self.rank,
+            world_size=self.world_size, num_workers=config.DATA.NUM_WORKERS,
+            assemble=False, slab_on_disk=config.TPU.EVAL_SLAB_ON_DISK)
         names = [os.path.splitext(os.path.basename(s))[0] for s in dataset.samples]
         labels = np.asarray(list_to_idx(names, lambda x: x.split("_")[0]))
         parts = []
@@ -300,10 +337,14 @@ class HisfragTrainer(Trainer):
             parts.append(row_partials(dist.astype(np.float32), labels,
                                       row_labels=labels[lo:lo + dist.shape[0]]))
         part = {k: sum(p[k] for p in parts) for k in parts[0]}
-        metrics = merge_partials([part])
+        keys = sorted(part)
+        gathered = process_allgather(np.asarray([part[k] for k in keys],
+                                                np.float64))
+        metrics = merge_partials([dict(zip(keys, row)) for row in gathered])
         m_ap, top1, pr_k10, pr_k100 = metrics
-        self.logger.info(f"mAP {m_ap:.3f}\tTop 1 {top1:.3f}\t"
-                         f"Pr@k10 {pr_k10:.3f}\tPr@k100 {pr_k100:.3f}")
+        if self.rank == 0:
+            self.logger.info(f"mAP {m_ap:.3f}\tTop 1 {top1:.3f}\t"
+                             f"Pr@k10 {pr_k10:.3f}\tPr@k100 {pr_k100:.3f}")
         return metrics, rows, names, scorer
 
     def validate(self) -> float:

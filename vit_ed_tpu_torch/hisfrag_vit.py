@@ -79,6 +79,9 @@ def compute_distance_matrix_from_embeddings(embeddings: np.ndarray,
 class HisfragVitTrainer(PairHisfragTrainer):
     """The pairwise trainer's data plumbing with an embedding loss."""
 
+    ONE_PROCESS_ONLY = ("hisfrag_vit: the batch-hard triplet loss mines "
+                        "over the global batch's labels")
+
     def get_criterion(self):
         return None
 

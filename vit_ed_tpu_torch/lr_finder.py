@@ -61,6 +61,8 @@ def parse_option(argv: Optional[List[str]] = None):
 
 class LrFinderTrainer(Trainer):
 
+    ONE_PROCESS_ONLY = "lr_finder: its sweep steps without the all-reduce"
+
     def get_criterion(self):
         return bce_with_logits
 

@@ -196,8 +196,10 @@ class VitTripletTrainer(Trainer):
                 puzzles.append(new_puzzle)
                 t3 = time.time()
 
-                os.makedirs(output_dir, exist_ok=True)
-                new_puzzle.save_to_file(os.path.join(output_dir, os.path.basename(img_path)))
+                if self.rank == 0:   # one writer of several processes
+                    os.makedirs(output_dir, exist_ok=True)
+                    new_puzzle.save_to_file(
+                        os.path.join(output_dir, os.path.basename(img_path)))
                 records.append({
                     "subset": subset, "image": img_path, "pieces": pieces,
                     "distances": distances, "puzzle": new_puzzle,

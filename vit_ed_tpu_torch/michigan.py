@@ -181,7 +181,7 @@ class MichiganTrainer(HisfragTrainer):
         self.logger.info(f"[{mode}] Dataset length: {max_len}")
         sampler = MPerClassSampler(dataset.data_labels, m=3,
                                    length_before_new_iter=max_len,
-                                   seed=self.config.SEED)
+                                   seed=self.config.SEED + self.rank)
         loader = DataLoader(dataset, sampler=sampler,
                             batch_size=self.config.DATA.BATCH_SIZE,
                             num_workers=self.config.DATA.NUM_WORKERS,
@@ -276,14 +276,15 @@ class MichiganTrainer(HisfragTrainer):
             import glob
 
             for f in glob.glob(os.path.join(config.OUTPUT,
-                                            f"{split.value}_rank*.npz")):
+                                            f"{split.value}_rank{self.rank}_*.npz")):
                 os.unlink(f)
         scorer = PairwiseScorer(self.model, num_outputs=1,
                                 pair_chunk=config.DATA.TEST_BATCH_SIZE,
                                 int8=config.TPU.INT8_SCORE)
         sim = scorer.score_dataset(dataset, batch_size=config.DATA.BATCH_SIZE,
                                    logger=self.logger, out_dir=config.OUTPUT,
-                                   tag=split.value,
+                                   tag=split.value, rank=self.rank,
+                                   world_size=self.world_size,
                                    num_workers=config.DATA.NUM_WORKERS)
         distance_matrix = (1.0 - sim.astype(np.float32)).astype(np.float16)
         self.logger.info("Distance matrix is generated!")

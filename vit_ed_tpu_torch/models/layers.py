@@ -93,12 +93,19 @@ class DropPath(nn.Module):
 
     The draws come from ``generator``, an explicit ``torch.Generator`` on
     the activations' device that the model owns and the trainer seeds
-    (``ViTED.seed_drop_path``); the global RNG is never touched."""
+    (``ViTED.seed_drop_path``); the global RNG is never touched.
+
+    Data-parallel over several processes (``shard_draws``), x holds rank
+    ``r``'s rows of a global batch of ``world`` equal local batches: the
+    module draws the global batch's mask from the generator, whose state
+    is alike on every rank, and keeps rows [r x B, (r + 1) x B), so that
+    the ranks together draw what one process on the global batch draws."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard = (0, 1)   # (rank, world) of the rows x holds
 
     def mask_shape(self, x: torch.Tensor):
         return (x.shape[0],) + (1,) * (x.ndim - 1)
@@ -112,9 +119,14 @@ class DropPath(nn.Module):
                 f"generator: call the model's seed_drop_path(seed) after "
                 f"moving the model to its device")
         keep = 1.0 - self.rate
+        rank, world = self.shard
+        shape = self.mask_shape(x)
         mask = torch.bernoulli(
-            torch.full(self.mask_shape(x), keep, dtype=torch.float32, device=x.device),
+            torch.full((shape[0] * world,) + tuple(shape[1:]), keep,
+                       dtype=torch.float32, device=x.device),
             generator=self.generator)
+        if world > 1:
+            mask = mask[rank * shape[0]:(rank + 1) * shape[0]]
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
@@ -124,6 +136,14 @@ class Dropout(DropPath):
 
     def mask_shape(self, x: torch.Tensor):
         return x.shape
+
+
+def shard_draws(model: nn.Module, rank: int, world: int) -> None:
+    """Make every DropPath / Dropout of ``model`` draw rank ``rank``'s rows
+    of the mask of a global batch of ``world`` local batches."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.shard = (rank, world)
 
 
 def normalize_images(x: torch.Tensor) -> torch.Tensor:

@@ -133,11 +133,13 @@ class PajigsawTrainer(Trainer):
         return sum(result["neighbor"]) / len(result["neighbor"]), puzzles, im_names
 
     def test(self):
-        """Solve the test split and save each reconstruction; returns
-        ``validate_dataloader``'s triple."""
+        """Solve the test split and save each reconstruction (rank 0 of
+        several processes); returns ``validate_dataloader``'s triple."""
         self.logger.info("Starting test...")
         dataset = PajigsawPieces(self.config.DATA.DATA_PATH, Split.TEST)
         out = self.validate_dataloader(dataset)
+        if self.rank != 0:
+            return out
         for puzzle, im_name in zip(out[1], out[2]):
             output_file = os.path.join(self.config.OUTPUT, "reconstructed", f"{im_name}.jpg")
             os.makedirs(os.path.dirname(output_file), exist_ok=True)

@@ -12,7 +12,10 @@ is not saved: the trainer seeds it at start, and a resume draws and
 prepares the skipped batches again, which realigns its draws.
 ``auto_resume_helper`` picks the newest checkpoint of a directory by
 mtime. Files are written to a temporary name and renamed, so a killed run
-never leaves a half-written checkpoint under the final name.
+never leaves a half-written checkpoint under the final name. Several
+processes hold the same state: rank 0 writes the one file (the JAX save is
+collective and leaves one directory) while the others wait at a barrier,
+and every rank loads it on resume (``Trainer._save`` / ``_load_resume``).
 ``load_pretrained`` (models/convert.py) reads both these files and
 reference ``.pth`` files, re-initialising a mismatched classifier head and
 upcycling a dense checkpoint into a model with expert banks (every expert
@@ -28,17 +31,22 @@ import torch
 
 from vit_ed_tpu_torch.models.convert import load_pretrained
 
-__all__ = ["CKPT_SUFFIX", "auto_resume_helper", "load_checkpoint",
-           "load_pretrained", "save_checkpoint"]
+__all__ = ["CKPT_SUFFIX", "auto_resume_helper", "checkpoint_path",
+           "load_checkpoint", "load_pretrained", "save_checkpoint"]
 
 CKPT_SUFFIX = ".ckpt"
+
+
+def checkpoint_path(config, name: str) -> str:
+    """``OUTPUT/<name>.ckpt``, absolute."""
+    return os.path.abspath(os.path.join(config.OUTPUT, name + CKPT_SUFFIX))
 
 
 def save_checkpoint(config, epoch: int, state: Dict[str, Any],
                     min_loss: float, logger, name: str) -> str:
     """Save ``state`` plus ``epoch`` and ``min_loss`` to
     ``OUTPUT/<name>.ckpt``; returns the path."""
-    path = os.path.abspath(os.path.join(config.OUTPUT, name + CKPT_SUFFIX))
+    path = checkpoint_path(config, name)
     logger.info(f"{path} saving......")
     tree = dict(state)
     tree["epoch"] = int(epoch)

@@ -1,4 +1,4 @@
-"""Training engine for one process and one device
+"""Training engine, on one device per process
 (``vit_ed_tpu/train/engine.py``).
 
 The template-method surface of the JAX ``Trainer`` is kept
@@ -53,9 +53,37 @@ and the last update's are logged on each ``Train:`` line. A custom
 ``make_loss_fn`` that wants them adds them itself
 (``models.moe.collect_moe_aux``; hisfrag's does).
 
-Not ported (ROADMAP queue A items 7b and 12b, both waiting for a host with
-several cards): several processes, a device mesh and every parallelism
-switch; they raise.
+Several processes (``torchrun``, SLURM; ``parallel/mesh.py`` joins the
+group) train data-parallel on the global batch, as the JAX trainer's one
+program over every process's local batch does:
+
+- each rank draws its own batches (the samplers take ``num_replicas`` =
+  the process count; host seeds are ``SEED + rank``), while the model's
+  initial weights and its DropPath / Dropout generator are seeded with
+  ``SEED`` on every rank, and each of those modules draws the mask of the
+  global batch and keeps its own rows (``models.layers.shard_draws``);
+- the LR scales by the global batch ``BATCH_SIZE x world / 256``;
+- after the backward, one all-reduce SUM of the gradients (and of the
+  loss) over the default group, before the clip, so that the clip reads
+  the global norm and every rank applies the same update. Each rank's loss
+  is scaled first so that the sum is the global loss: by ``1 / world``
+  where the loss is a mean over equal local batches
+  (``rank_loss_weight``); a trainer whose loss normalises otherwise says
+  so (hisfrag divides its masked sum by the global live-pair count,
+  ``share_batches``);
+- only rank 0 logs to the console, writes ``config.json`` and the
+  checkpoints, and a barrier follows each save; every rank loads on
+  resume. The validation loss that picks ``best_model`` is the mean of
+  the ranks', so that every rank takes the same decision;
+- the preemption guard agrees across ranks (``utils/preempt.py``); the
+  MFU line counts the global FLOPs over ``world`` cards.
+
+Several processes are refused, naming ROADMAP A7c, where a loss or a
+statistic couples samples across the global batch, which a rank's local
+computation would give otherwise: the BatchNorm types (their statistics are
+the global batch's in JAX), MoE (balance and z terms over global tokens),
+and a subclass's ``ONE_PROCESS_ONLY`` reason. A device mesh and every
+parallelism switch raise, naming ROADMAP A12b.
 """
 
 from __future__ import annotations
@@ -79,7 +107,15 @@ from vit_ed_tpu_torch.data.samplers import (
 from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
 from vit_ed_tpu_torch.device import resolve_device
 from vit_ed_tpu_torch.models.build import build_model
+from vit_ed_tpu_torch.models.layers import shard_draws
 from vit_ed_tpu_torch.models.moe import collect_moe_aux
+from vit_ed_tpu_torch.parallel.mesh import (
+    allreduce_sum,
+    barrier,
+    maybe_init_distributed,
+    process_count,
+    process_index,
+)
 from vit_ed_tpu_torch.train import checkpoint as ckpt
 from vit_ed_tpu_torch.train.optim import (
     build_optimizer,
@@ -116,19 +152,32 @@ class Trainer:
     """Template trainer. Subclasses override ``get_criterion`` / ``validate``
     and optionally the data and loss hooks."""
 
+    # why a subclass refuses several processes (ROADMAP A7c), or None
+    ONE_PROCESS_ONLY: Optional[str] = None
+
     def __init__(self, args):
-        self.device = resolve_device(getattr(args, "device", None))
+        device = getattr(args, "device", None)
+        maybe_init_distributed(
+            backend="gloo" if str(device or "cuda").startswith("cpu") else None)
+        self.rank, self.world_size = process_index(), process_count()
+        # the step all-reduces whenever a process group is up (one rank of
+        # one too: its transport then runs the same code)
+        self.data_parallel = torch.distributed.is_initialized()
+        self.device = resolve_device(device)
         self.config = get_config(args)
         if self.config.TPU.MESH_SHAPE or self.config.TPU.MESH_AXES:
             raise NotImplementedError(
                 "TPU.MESH_SHAPE / TPU.MESH_AXES: the port trains on one "
-                "device; meshes and parallelism are ROADMAP queue A item 12b")
+                "device per process; meshes and parallelism are ROADMAP "
+                "queue A item 12b")
+        if self.world_size > 1:
+            self._refuse_coupled_batch()
 
         set_seed(self.config.SEED)
 
-        # linear LR scaling by batch / 256 (x accumulation), as the JAX
-        # trainer does with one device
-        scale = self.config.DATA.BATCH_SIZE / 256.0
+        # linear LR scaling by the global batch / 256 (x accumulation), as
+        # the JAX trainer does
+        scale = self.config.DATA.BATCH_SIZE * self.world_size / 256.0
         if self.config.TRAIN.ACCUMULATION_STEPS > 1:
             scale *= self.config.TRAIN.ACCUMULATION_STEPS
         self.config.defrost()
@@ -138,18 +187,26 @@ class Trainer:
         self.config.freeze()
 
         os.makedirs(self.config.OUTPUT, exist_ok=True)
-        self.logger = create_logger(output_dir=self.config.OUTPUT, dist_rank=0,
+        self.logger = create_logger(output_dir=self.config.OUTPUT,
+                                    dist_rank=self.rank,
                                     name=f"{self.config.MODEL.NAME}_torch",
                                     affix=getattr(args, "mode", ""))
-        path = os.path.join(self.config.OUTPUT, "config.json")
-        with open(path, "w") as f:
-            json.dump(self.config.to_dict(), f, indent=2, default=str)
-        self.logger.info(f"Full config saved to {path}")
+        if self.rank == 0:
+            path = os.path.join(self.config.OUTPUT, "config.json")
+            with open(path, "w") as f:
+                json.dump(self.config.to_dict(), f, indent=2, default=str)
+            self.logger.info(f"Full config saved to {path}")
+        if self.world_size > 1:
+            self.logger.info(f"rank {self.rank} of {self.world_size} on "
+                             f"{self.device}")
 
         self.logger.info(
             f"Creating model:{self.config.MODEL.TYPE}/{self.config.MODEL.NAME}")
         self.model = build_model(self.config, self.device)
+        # one generator state on every rank; each module draws the global
+        # batch's mask and keeps this rank's rows
         self.drop_path_generator = self.model.seed_drop_path(self.config.SEED)
+        shard_draws(self.model, self.rank, self.world_size)
         n_parameters = sum(p.numel() for p in self.model.parameters())
         self.logger.info(f"number of params: {n_parameters} on {self.device} "
                          f"(compute {self.model.dtype})")
@@ -186,6 +243,26 @@ class Trainer:
         # the expert banks' aux terms [n_banks, 2] of the last training
         # forward whose loss added them (None without MoE aux losses)
         self.moe_aux: Optional[torch.Tensor] = None
+        if self.world_size > 1:
+            # the weights above are alike on every rank; the data path's
+            # draws are each rank's own
+            set_seed(self.config.SEED + self.rank)
+
+    def _refuse_coupled_batch(self) -> None:
+        """Raise for several processes where a loss or a statistic couples
+        the samples of the global batch (ROADMAP A7c)."""
+        config = self.config
+        reason = self.ONE_PROCESS_ONLY
+        if config.MODEL.TYPE in LAYER_COUNTED:
+            reason = (f"MODEL.TYPE {config.MODEL.TYPE}: BatchNorm statistics "
+                      f"over the global batch (SyncBN)")
+        elif config.MODEL.TYPE == "pjs" and config.MODEL.PJS.MOE.EXPERTS > 0:
+            reason = ("MODEL.PJS.MOE: the balance and z terms over the "
+                      "global batch's tokens")
+        if reason:
+            raise NotImplementedError(
+                f"several processes (WORLD_SIZE {self.world_size}) are not "
+                f"ported for {reason} (ROADMAP A7c)")
 
     # ------------------------------------------------------------- data hooks
     def get_transforms(self) -> Dict[str, Callable]:
@@ -204,15 +281,16 @@ class Trainer:
                          f"({len(dataset)} items, repeat {repeat})")
         if mode == "train":
             sampler = DistributedRepeatSampler(
-                len(dataset), shuffle=True, repeat=repeat, seed=config.SEED)
+                len(dataset), num_replicas=self.world_size, rank=self.rank,
+                shuffle=True, repeat=repeat, seed=config.SEED)
             loader = DataLoader(dataset, sampler=sampler,
                                 batch_size=config.DATA.BATCH_SIZE,
                                 num_workers=config.DATA.NUM_WORKERS,
                                 drop_last=True)
         else:
             sampler = DistributedEvalSampler(
-                len(dataset), shuffle=config.TEST.SHUFFLE, repeat=repeat,
-                seed=config.SEED)
+                len(dataset), num_replicas=self.world_size, rank=self.rank,
+                shuffle=config.TEST.SHUFFLE, repeat=repeat, seed=config.SEED)
             loader = DataLoader(dataset, sampler=sampler,
                                 batch_size=config.DATA.TEST_BATCH_SIZE,
                                 num_workers=config.DATA.NUM_WORKERS,
@@ -263,19 +341,50 @@ class Trainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
+    def rank_loss_weight(self) -> float:
+        """The factor of this rank's loss that makes the sum over ranks the
+        global loss: ``1 / world`` for a mean over equal local batches."""
+        return 1.0 / self.world_size
+
+    def share_batches(self, micro_batches: List[Dict[str, np.ndarray]]) -> None:
+        """Several processes: add to the host batches what their loss needs
+        from the other ranks, before the step (every rank calls it once per
+        update). Nothing by default."""
+
+    def _allreduce_grads(self, loss_sum: torch.Tensor) -> torch.Tensor:
+        """Sum the gradients and ``loss_sum`` over the ranks in one
+        all-reduce of one flat float32 buffer; returns the summed loss."""
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [loss_sum.float().reshape(1)])
+        torch.distributed.all_reduce(flat)
+        offset = 0
+        for p in params:
+            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
+        return flat[offset]
+
     def train_step(self, micro_batches: List[Dict[str, np.ndarray]]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer update from ``len(micro_batches)`` micro-batches:
-        the mean of their losses and of their gradients, clipped. Returns
-        (loss, pre-clip global grad norm) as device scalars."""
+        the mean of their losses and of their gradients, summed over the
+        ranks, clipped. Returns (loss, pre-clip global grad norm) as device
+        scalars."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         n = len(micro_batches)
+        if self.data_parallel:
+            self.share_batches(micro_batches)
+        weight = self.rank_loss_weight() if self.data_parallel else 1.0
         loss_sum = None
         for batch in micro_batches:
             loss = self.loss_fn(self.model, self._to_device(batch))
+            if weight != 1.0:
+                loss = loss * weight
             (loss / n).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        if self.data_parallel:
+            loss_sum = self._allreduce_grads(loss_sum)
         grad_norm = clip_grad_norm(self.model.parameters(),
                                    self.config.TRAIN.CLIP_GRAD)
         set_lr(self.optimizer, self.schedule(self.step))
@@ -315,13 +424,13 @@ class Trainer:
         self._resume_skip_opt_steps = 0
         if config.MODEL.RESUME:
             self._load_resume()
-            loss = self.validate()
+            loss = self._agreed_validate()
             self.min_loss = min(loss, self.min_loss)
             self.logger.info(f"Loss of the network on the val set: {loss:.4f}")
 
         self.logger.info("Start training...")
         start_time = time.time()
-        loss = self.validate()
+        loss = self._agreed_validate()
         self.logger.info(f"Init loss: {loss}")
         for epoch in range(self.start_epoch, config.TRAIN.EPOCHS):
             self.train_one_epoch(epoch, data_loader)
@@ -332,7 +441,7 @@ class Trainer:
             if (epoch % config.SAVE_FREQ == 0
                     or epoch == config.TRAIN.EPOCHS - 1):
                 self._save(epoch, "checkpoint")
-            loss = self.validate()
+            loss = self._agreed_validate()
             if loss < self.min_loss:
                 self._save(epoch, "best_model")
                 self.logger.info(f"Loss is reduced from {self.min_loss} to {loss}")
@@ -342,17 +451,31 @@ class Trainer:
         self.logger.info(f"Training time {total_time}")
         return self
 
+    def _agreed_validate(self) -> float:
+        """``validate()``, meaned over the ranks: every rank then takes the
+        same best-model decision (the ranks of a scan's validation hold the
+        same value already)."""
+        loss = self.validate()
+        if self.world_size == 1:
+            return loss
+        return float(allreduce_sum(np.float64(loss))) / self.world_size
+
     def _save(self, epoch: int, name: str, in_epoch_opt_steps: int = 0) -> str:
         """``in_epoch_opt_steps > 0`` marks a mid-epoch (preemption) save:
         ``epoch`` is the epoch in progress, and a resume continues it after
-        that many updates instead of starting the next one."""
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
-                 "step": self.step,
-                 "in_epoch_opt_steps": int(in_epoch_opt_steps),
-                 "drop_path_generator": self.drop_path_generator.get_state()}
-        return ckpt.save_checkpoint(self.config, epoch, state, self.min_loss,
-                                    self.logger, name)
+        that many updates instead of starting the next one. Rank 0 writes
+        (every rank holds the same state); the others wait for it."""
+        path = ckpt.checkpoint_path(self.config, name)
+        if self.rank == 0:
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.state_dict(),
+                     "step": self.step,
+                     "in_epoch_opt_steps": int(in_epoch_opt_steps),
+                     "drop_path_generator": self.drop_path_generator.get_state()}
+            ckpt.save_checkpoint(self.config, epoch, state, self.min_loss,
+                                 self.logger, name)
+        barrier()
+        return path
 
     def _load_resume(self) -> None:
         path = self.config.MODEL.RESUME
@@ -414,11 +537,12 @@ class Trainer:
         return f"\tmoe load_balance {lb:.4f} router_z {z:.4f}"
 
     def _log_mfu(self, step_seconds: float, step_flops: Optional[float],
-                 model_type: str) -> str:
+                 model_type: str, cards: int = 1) -> str:
         """The epoch's model-FLOP MFU line: mean model FLOPs per update over
-        the median time per update between syncs, against the card's dense
-        bf16 peak (or TPU.PEAK_TFLOPS where a config sets it); no
-        percentage where the peak or the model's count is unknown."""
+        the median time per update between syncs, against the dense bf16
+        peak of ``cards`` cards (or TPU.PEAK_TFLOPS each where a config sets
+        it); no percentage where the peak or the model's count is
+        unknown."""
         if step_flops is None:
             line = (f"Model FLOPs: not counted for MODEL.TYPE {model_type}; "
                     f"{step_seconds * 1e3:.1f} ms per update (median between "
@@ -428,15 +552,17 @@ class Trainer:
         peak, name = bf16_peak_tflops(self.device, self.model.dtype,
                                       self.config.TPU.PEAK_TFLOPS)
         tfs = step_flops / step_seconds / 1e12
+        over = f" over {cards} cards" if cards > 1 else ""
         line = (f"Model FLOPs: {step_flops / 1e9:.3f} GF/update (forward + "
-                f"backward, counted from the {model_type} geometry) / "
+                f"backward, counted from the {model_type} geometry{over}) / "
                 f"{step_seconds * 1e3:.1f} ms per update (median between "
                 f"syncs, host input included) = {tfs:.2f} TF/s; ")
         if peak is None:
             line += (f"model-FLOP MFU not computed: the {self.model.dtype} "
                      f"peak of {name} is unknown (set TPU.PEAK_TFLOPS)")
         else:
-            line += (f"{100 * tfs / peak:.1f}% model-FLOP MFU of {name} "
+            of = f"{cards} x {name}" if cards > 1 else name
+            line += (f"{100 * tfs / (peak * cards):.1f}% model-FLOP MFU of {of} "
                      f"{peak:.1f} TF/s")
         self.logger.info(line)
         return line
@@ -516,8 +642,10 @@ class Trainer:
             f"{datetime.timedelta(seconds=int(epoch_time))}")
         if len(sync_rates) >= 3:   # one or two intervals are noise
             counted = None if None in step_flops else float(np.mean(step_flops))
+            if counted is not None and self.world_size > 1:
+                counted = float(allreduce_sum(np.float64(counted)))
             self._log_mfu(float(np.median(sync_rates)), counted,
-                          self.config.MODEL.TYPE)
+                          self.config.MODEL.TYPE, self.world_size)
 
     # ------------------------------------------------------------- throughput
     def throughput_batch(self) -> np.ndarray:

@@ -7,17 +7,28 @@ into a flag; the trainer polls ``should_stop(step)`` after every optimizer
 update, and on True saves a mid-epoch checkpoint (``in_epoch_opt_steps``)
 and returns, so that a rerun continues the same epoch from that update.
 
-One process: the answer is the local flag. The JAX guard all-gathers every
-process's flag at each cadence so that all processes save together; the
-port trains in one process (several processes are ROADMAP queue A item 7),
-so there is nothing to agree with yet, and the guard has no
-``torch.distributed`` path.
+One process: the answer is the local flag. Several processes: SIGTERM
+reaches each rank on its own time (rank A may see it during update k, rank
+B during k + 1, or never), but every rank must save at the same update and
+stop. So the guard never acts on the local flag alone: at each cadence
+every rank contributes its flag to an all-gather of one int over the
+host (gloo) group, and all of them stop if any flagged. The cadence is
+aligned by construction: every rank runs the same number of updates and
+calls ``should_stop`` after each. As in the JAX guard, the agreement is one
+cadence lagged: each call starts this cadence's gather (``async_op=True``)
+and reads the previous cadence's result, so the host never waits on a
+gather that was just posted. All ranks read the same gather at the same
+cadence index, so they agree exactly; the first call reads its own.
 """
 
 from __future__ import annotations
 
 import signal
 import threading
+
+import torch
+
+from vit_ed_tpu_torch.parallel import mesh
 
 __all__ = ["PreemptionGuard"]
 
@@ -31,6 +42,7 @@ class PreemptionGuard:
         self._flag = threading.Event()
         self._prev = None
         self._installed = False
+        self._pending = None   # the posted gather: (work, outputs)
 
     def install(self) -> "PreemptionGuard":
         """Register the SIGTERM handler. Off the main thread (where CPython
@@ -44,7 +56,11 @@ class PreemptionGuard:
         return self
 
     def uninstall(self) -> None:
-        """Put back the handler that was there before :meth:`install`."""
+        """Put back the handler that was there before :meth:`install`, and
+        finish the gather still posted (every rank posted it)."""
+        if self._pending is not None:
+            self._pending[0].wait()
+            self._pending = None
         if self._installed:
             signal.signal(signal.SIGTERM, self._prev)
             self._prev = None
@@ -69,9 +85,26 @@ class PreemptionGuard:
     def preempted_locally(self) -> bool:
         return self._flag.is_set()
 
+    def _dispatch(self):
+        """Post this rank's flag into an all-gather without waiting."""
+        flag = torch.tensor([int(self._flag.is_set())], dtype=torch.int32)
+        out = [torch.zeros_like(flag) for _ in range(mesh.process_count())]
+        work = torch.distributed.all_gather(out, flag, group=mesh._host_group(),
+                                            async_op=True)
+        return work, out
+
     def should_stop(self, step: int) -> bool:
-        """Whether to save and stop after update ``step``: the flag, read
-        on steps that are multiples of ``check_freq`` (False between)."""
+        """Whether to save and stop after update ``step``, on steps that
+        are multiples of ``check_freq`` (False between, with no
+        communication). One process: the local flag. Several: whether any
+        rank had flagged at the previous cadence (at the first, at this
+        one); every rank calls it with the same ``step`` sequence."""
         if step % self.check_freq:
             return False
-        return self._flag.is_set()
+        if mesh.process_count() == 1:
+            return self._flag.is_set()
+        if self._pending is None:
+            self._pending = self._dispatch()
+        (work, out), self._pending = self._pending, self._dispatch()
+        work.wait()
+        return any(int(t.item()) for t in out)
