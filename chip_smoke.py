@@ -198,9 +198,11 @@ nothing from the JAX package. Phases, each printing its own lines:
     1-4 pairs, on the float32 wire (``pair``) and the uint8 one
     (``pair_u8``): requests/s, pairs/s, device calls against requests, p50 /
     p99 latency, responses against a direct replay (1e-2); (e) ``python -m
-    vit_ed_tpu_torch.export_serving --batch-sizes 8,64 --verify``; (f)
-    ``python -m vit_ed_tpu_torch.serve --bundle <(a)'s bundle>`` in a child
-    process started with (e): one ``/v1/score`` against the live model;
+    vit_ed_tpu_torch.export_serving --batch-sizes 8,64 --verify`` (exit 0,
+    two buckets of every stage) and (f) ``python -m vit_ed_tpu_torch.serve
+    --bundle <(a)'s bundle>`` (one ``/v1/score`` against the live model),
+    each in a child process that runs on beside phases 21 and 22 and is read
+    after them;
 21. MoE on one card: ``configs/scale/hisfrag20_pjsL_moe_hybrid.yaml``
     without its mesh and its TP / SP / EP / FSDP switches (pjs-L: embed 1,024,
     16 heads x 64, 24 + 24 blocks, 8 experts on every second encoder block,
@@ -237,6 +239,25 @@ nothing from the JAX package. Phases, each printing its own lines:
     one rank with the default ``cpu:gloo,cuda:nccl`` backend: one DIV2K
     update through the same all-reduce, equal to the plain update bit for
     bit. NCCL across two cards needs a host with two.
+23. the coupled batch on two ranks (gloo, sharing the card; one pair of
+    children ``python chip_smoke.py --coupled-child <spec>`` runs a-c in
+    turn), each update's host ms and the share of it in gloo collectives:
+    (a) ``hisfrag_vit --mode train`` (ViT-S/16 at 512 px, 2 x 16 images, 3
+    updates, bf16): the ranks bit-equal after every update, the pair
+    kernels' launches by shape, and one f32 update (SGD, classes across
+    the ranks) against one process's on the concatenated batch within 1e-4;
+    (b) ss2 (resnet34 at 512 px, SyncBN) in float64, 2 x 4 images, two
+    updates: the ranks bit-equal, update 1's parameters and running
+    statistics within 1e-4 of one process's, and rank 0's own batch's
+    statistics far from the global ones; (c) the pjs-L MoE configuration
+    at its full widths and depth, 2 x 4 images, one bf16 update (what fits
+    two ranks on the card): the ranks bit-equal with equal global aux
+    terms, peak memory per rank, the pair kernels forward and backward on
+    every rank; then one f32 update at 2 + 2 blocks against one process's
+    (parameters within 1e-4, aux terms within 1e-6); (d) one rank with the
+    default backend: ``all_reduce_sum`` and ``all_gather_rows`` and a
+    hisfrag_vit update through them over NCCL equal the plain ones bit for
+    bit.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -4391,7 +4412,6 @@ def serve_load(url, stage, xs, threads=SERVE_THREADS, n=SERVE_REQUESTS):
 def phase_serve(tmp, scan5, gen):
     """Phase 20. The serving tier at pjs-S patch16_512 bf16, weights from a
     seed."""
-    from vit_ed_tpu_torch import export_serving
     from vit_ed_tpu_torch.serve import BundleServer, export_scorer, load_scorer, scan_pairs
 
     print("== phase 20: the serving tier (vit_ed_tpu_torch.serve) at pjs-S "
@@ -4485,29 +4505,35 @@ def phase_serve(tmp, scan5, gen):
     del scorer, imgs
     torch.cuda.empty_cache()
 
-    # (e) a bucketed bundle through the export entry, verified on the card;
-    # (f) meanwhile the host's own entry starts in a child process on (a)'s
-    # bundle (its start-up overlaps the export)
-    child = serve_cli_start(out)
-    try:
-        out_b = os.path.join(tmp, "bundle_b")
-        t0 = time.time()
-        meta_b = export_serving.main(["--cfg", FLAGSHIP_CFG, "--output", out_b,
-                                      "--batch-sizes", "8,64", "--verify"])
-        res["bucketed_s"] = time.time() - t0
-        print(f"  (e) python -m vit_ed_tpu_torch.export_serving --batch-sizes 8,64 "
-              f"--verify: {sum(len(v) for v in meta_b['stages'].values())} artifacts "
-              f"(buckets {meta_b['batch_mode']}), export and verify "
-              f"{res['bucketed_s']:.1f}s", flush=True)
-        if meta_b["batch_mode"] != [8, 64]:
-            raise AssertionError(f"buckets {meta_b['batch_mode']}")
-        res["cli"] = serve_cli_check(*child, model, xs[1])
-    finally:
-        serve_cli_stop(child[0])
+    # (e) a bucketed bundle through the export entry, verified on the card,
+    # and (f) the host's own entry on (a)'s bundle, each in a child process
+    # started here: they run on beside phases 21 and 22, and main() reads
+    # them after those (serve_children_finish), with the live model kept
+    res["export_b"] = export_bucketed_start(tmp)
+    res["cli_child"] = serve_cli_start(out)
+    res["cli_args"] = (model, xs[1])
     del model
     torch.cuda.empty_cache()
     print(f"  phase 20 took {time.time() - t_phase:.1f}s", flush=True)
     return res
+
+
+_BACKGROUND = []          # children that outlive their phase; main() stops them
+
+
+def serve_children_finish(serve):
+    """Phase 20's (e) and (f), read after phases 21 and 22: the bucketed
+    export's holds, then the host's ``/v1/score`` against the live model,
+    which is freed after."""
+    export_bucketed_finish(serve.pop("export_b"))
+    proc, t0 = serve.pop("cli_child")
+    model, x = serve.pop("cli_args")
+    try:
+        serve["cli"] = serve_cli_check(proc, t0, model, x)
+    finally:
+        serve_cli_stop(proc)
+    del model
+    torch.cuda.empty_cache()
 
 
 def serve_cli_start(bundle):
@@ -4516,6 +4542,7 @@ def serve_cli_start(bundle):
     proc = subprocess.Popen(
         [sys.executable, "-m", "vit_ed_tpu_torch.serve", "--bundle", bundle,
          "--port", "0"], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    _BACKGROUND.append(proc)
     return proc, time.time()
 
 
@@ -4526,8 +4553,8 @@ def serve_cli_check(proc, t0, model, x):
 
     from vit_ed_tpu_torch.serve import ServeClient
 
-    line = ""
-    while " on http://" not in line and time.time() - t0 < 300:
+    line, deadline = "", time.time() + 300
+    while " on http://" not in line and time.time() < deadline:
         ready, _, _ = select.select([proc.stdout], [], [], 300)
         line = proc.stdout.readline() if ready else ""
         if not line and proc.poll() is not None:
@@ -4540,12 +4567,55 @@ def serve_cli_check(proc, t0, model, x):
         want = model(torch.from_numpy(x).cuda()).float().cpu().numpy()
     gap = float(np.abs(got - want).max())
     print(f"  (f) python -m vit_ed_tpu_torch.serve --bundle <(a)'s bundle>: serving "
-          f"within {up:.1f}s of its start (it started with (e)); /v1/score of "
+          f"within {up:.1f}s of its start (it started with (e) and ran beside phases "
+          f"21 and 22); /v1/score of "
           f"{len(x)} pairs against the live model max |diff| {gap:.3e} (tol 2e-3)",
           flush=True)
     if gap > 2e-3:
         raise AssertionError("the serving host's scores differ from the live model")
     return {"up_s": up, "max_abs_diff": gap}
+
+
+def export_bucketed_start(tmp):
+    """Start ``python -m vit_ed_tpu_torch.export_serving --batch-sizes
+    8,64 --verify`` on the flagship configuration as a child process:
+    (the process, its start time, its bundle, its log)."""
+    out_b, log = os.path.join(tmp, "bundle_b"), os.path.join(tmp, "export_b.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vit_ed_tpu_torch.export_serving", "--cfg", FLAGSHIP_CFG,
+             "--output", out_b, "--batch-sizes", "8,64", "--verify"],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    _BACKGROUND.append(proc)
+    return proc, time.time(), out_b, log
+
+
+def export_bucketed_finish(child, timeout=600):
+    """20(e)'s holds, once its child has ended: exit 0 (``--verify``
+    replays the pair stage against the live model), two buckets of every
+    stage."""
+    proc, t0, out_b, log = child
+    try:
+        rc = proc.wait(timeout=max(timeout - (time.time() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    with open(log) as f:
+        said = f.read()
+    if rc != 0:
+        raise AssertionError(f"20(e): export_serving exit {rc}:\n{said[-4000:]}")
+    with open(os.path.join(out_b, "serving_meta.json")) as f:
+        meta_b = json.load(f)
+    verified = [line.split("INFO ", 1)[-1].strip() for line in said.splitlines()
+                if "verify" in line]
+    print(f"== phase 20(e), run beside phases 21 and 22: python -m "
+          f"vit_ed_tpu_torch.export_serving --batch-sizes 8,64 --verify in a child process: "
+          f"{sum(len(v) for v in meta_b['stages'].values())} artifacts (buckets "
+          f"{meta_b['batch_mode']}), exit {rc} {time.time() - t0:.1f}s after its start; "
+          f"{'; '.join(verified)}", flush=True)
+    if meta_b["batch_mode"] != [8, 64] or not any("verify ok" in v for v in verified):
+        raise AssertionError(f"20(e): buckets {meta_b['batch_mode']}, verify {verified}")
 
 
 def serve_cli_stop(proc):
@@ -4858,7 +4928,8 @@ class MpRun:
     """Two ranks of ``python chip_smoke.py --rank-child`` sharing the card
     over gloo."""
 
-    def __init__(self, tmp, name, entry, runs, kill_at_block=None, f32=None):
+    def __init__(self, tmp, name, entry, runs, kill_at_block=None, f32=None,
+                 child="--rank-child", spec=None, env=None):
         import socket
 
         with socket.socket() as s:
@@ -4868,20 +4939,19 @@ class MpRun:
         self.t0 = time.time()
         for rank in range(2):
             res = os.path.join(tmp, f"mp_{name}_rank{rank}.json")
-            spec = {"entry": entry, "runs": runs, "result": res,
-                    "kill_at_block": kill_at_block, "f32": f32}
             with open(res + ".spec", "w") as f:
-                json.dump(spec, f)
+                json.dump({"entry": entry, "runs": runs, "result": res,
+                           "kill_at_block": kill_at_block, "f32": f32, **(spec or {})}, f)
             for old in (res, res + ".updates"):
                 if os.path.exists(old):
                     os.unlink(old)
-            env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(rank), "LOCAL_RANK": "0",
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                   "PYTHONUNBUFFERED": "1"}
+            child_env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(rank),
+                         "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                         "MASTER_PORT": str(port), "PYTHONUNBUFFERED": "1", **(env or {})}
             log = os.path.join(tmp, f"mp_{name}_rank{rank}.log")
             with open(log, "w") as f:
                 proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                         "--rank-child", res + ".spec"], cwd=ROOT, env=env,
+                                         child, res + ".spec"], cwd=ROOT, env=child_env,
                                         stdout=f, stderr=subprocess.STDOUT)
             _MP_PROCS.append(proc)
             self.procs.append(proc)
@@ -4904,7 +4974,7 @@ class MpRun:
         for rank in range(2):
             rc = self.wait(rank, max(timeout - (time.time() - self.t0), 1))
             if rc != 0:
-                raise AssertionError(f"phase 22 {self.name}: rank {rank} exit {rc}:\n"
+                raise AssertionError(f"phase {self.name}: rank {rank} exit {rc}:\n"
                                      + self.tail(rank))
         self.seconds = time.time() - self.t0
         out = []
@@ -5241,6 +5311,514 @@ def phase_multiprocess(tmp, scan5):
     print(f"  phase 22 took {time.time() - t_phase:.1f}s on {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the coupled batch on two ranks (phase 23)
+# ---------------------------------------------------------------------------
+
+CP_HFV_F32 = 4            # images per rank of 23a's f32 update
+CP_SS2_IMAGES = 4         # images per rank of 23b's float64 updates
+CP_MOE_IMAGES = 4         # images per rank of 23c's bf16 updates
+CP_MOE_F32 = 4            # images per rank of 23c's f32 update
+# 23c runs the pjs-L MoE configuration at its full depth, 24 + 24 blocks:
+# one update of 4 images per rank fits two ranks on the card (one rank of 8
+# peaked at 62.27 GiB in phase 21, which takes five; two updates at 20 + 20
+# peaked at 35.39 GiB per rank, one at 18 + 18 at 24.03: PERF.md). Its f32
+# one-process check runs at MOE_SHORT's 2 + 2 blocks, every width and a
+# bank kept: a dump of the f32 parameters at full depth is 5.6 GB
+CP_SGD = ("TRAIN.AUTO_RESUME", "False", "TRAIN.WARMUP_EPOCHS", "0",
+          "TRAIN.OPTIMIZER.NAME", "sgd")
+
+
+def cp_batch(rank, n, seed=0):
+    """A seeded batch of ``n`` 512 px float32 images of rank ``rank`` and
+    their labels (0, 0, 1, 1, ...) + rank: one class spans both ranks."""
+    rng = np.random.default_rng(400 + 10 * seed + rank)
+    return (rng.normal(size=(n, 512, 512, 3)).astype(np.float32),
+            (np.repeat(np.arange(n // 2), 2) + rank).astype(np.int32))
+
+
+def cp_concat(n, seed=0):
+    parts = [cp_batch(r, n, seed) for r in range(2)]
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+def to_float64(model):
+    """``model`` in float64 in place: weights, buffers and compute dtype."""
+    model.double()
+    for mod in model.modules():
+        if getattr(mod, "dtype", None) == torch.float32:
+            mod.dtype = torch.float64
+    return model
+
+
+def ss2_coupled_cls():
+    """Phase 18c's ss2 trainer with the default rank weight 1 / world (its
+    loss is a mean over the local batch; hisfrag_vit's trainer, which it
+    subclasses, weighs each rank's triplet share by 1) and its loss in the
+    model's dtype, so that a float64 model runs float64 throughout."""
+    from vit_ed_tpu_torch.train.engine import Trainer
+    from vit_ed_tpu_torch.train.losses import negative_cosine_similarity
+
+    class Coupled(ss2_trainer_cls()):
+        rank_loss_weight = Trainer.rank_loss_weight
+
+        def make_loss_fn(self, criterion):
+            def loss_fn(model, batch):
+                return negative_cosine_similarity(*model(batch["samples"]))
+
+            return loss_fn
+
+    return Coupled
+
+
+def state_digest(model):
+    """sha256 of every parameter's and buffer's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def worst_gap(model, path, skip=()):
+    """The worst max |saved - model| / max |model| over the parameters but
+    ``skip``, and where."""
+    got = torch.load(path, weights_only=True)
+    worst, at = 0.0, ""
+    for name, p in model.named_parameters():
+        if name in skip:
+            continue
+        ref = p.detach().cpu()
+        gap = ((got[name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if gap > worst:
+            worst, at = gap, name
+    return worst, at
+
+
+def cp_recorder(inner, steps, comm):
+    """``inner`` (a ``train_step``) that appends to ``steps`` its host ms,
+    the ms spent in collectives (``comm``), the state's digest, the loss,
+    the aux terms and the launches by shape."""
+    def recorded(self, micro):
+        comm[0] = 0.0
+        before = dict(A.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro)
+        torch.cuda.synchronize()
+        steps.append({
+            "ms": (time.time() - t0) * 1e3, "comm_ms": comm[0],
+            "digest": state_digest(self.model), "loss": loss.item(),
+            "aux": None if self.moe_aux is None else self.moe_aux.float().cpu().tolist(),
+            "shapes": [[*k, n - before.get(k, 0)] for k, n in A.launches_by_shape.items()
+                       if n > before.get(k, 0)]})
+        return loss, norm
+    return recorded
+
+
+def coupled_child(spec_path):
+    """One rank of phase 23 (``python chip_smoke.py --coupled-child
+    <spec.json>``; WORLD_SIZE, RANK, LOCAL_RANK and MASTER_* from the
+    environment): joins the gloo group, then (a) ``hisfrag_vit.main(argv)``
+    and an f32 update on a seeded batch, (b) two float64 ss2 updates,
+    (c) one bf16 update of the pjs-L MoE and an f32 one at 2 + 2
+    blocks; every collective's host time is summed per update. Writes what
+    it saw to ``spec['result']`` and the f32 states beside it."""
+    import torch.distributed as dist
+
+    from vit_ed_tpu_torch import hisfrag, hisfrag_vit
+    from vit_ed_tpu_torch.parallel import mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh.maybe_init_distributed(backend="gloo", timeout=MP_TIMEOUT)
+    rank = mesh.process_index()
+    res = spec["result"]
+    comm = [0.0]
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            comm[0] += (time.time() - t0) * 1e3
+            return out
+        return call
+
+    dist.all_reduce, dist.all_gather = timed(dist.all_reduce), timed(dist.all_gather)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def save_params(model, path):
+        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()}, path)
+
+    result = {"rank": rank}
+    # (a) the entry, then the f32 update
+    cls = hisfrag_vit.HisfragVitTrainer
+    inner, steps = cls.train_step, []
+    A.reset_launch_counts()
+    cls.train_step = cp_recorder(inner, steps, comm)
+    t0 = time.time()
+    try:
+        trainer = hisfrag_vit.main(spec["hfv_argv"])
+    finally:
+        cls.train_step = inner
+    torch.cuda.synchronize()
+    result["a"] = {"seconds": time.time() - t0, "steps": steps, "step": trainer.step,
+                   "launches": nonzero(A.launches)}
+    del trainer
+    free()
+    t = cls(hisfrag_vit.parse_option(spec["hfv_f32_argv"]))
+    t.setup_training(1)
+    f32 = []
+    cp_recorder(inner, f32, comm)(t, [t.prepare_data(*cp_batch(rank, CP_HFV_F32))])
+    result["a"]["f32"] = f32[0]
+    save_params(t.model, res + ".hfv32.pt")
+    del t
+    free()
+
+    # (b) ss2 in float64
+    ss2 = ss2_coupled_cls()
+    t = ss2(hisfrag_vit.parse_option(spec["ss2_argv"]))
+    to_float64(t.model)
+    t.setup_training(1)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        cp_recorder(ss2.train_step, steps, comm)(
+            t, [t.prepare_data(*cp_batch(rank, CP_SS2_IMAGES, seed=i))])
+        if i == 0:
+            torch.save({k: v.detach().cpu() for k, v in t.model.state_dict().items()},
+                       res + ".ss2.pt")
+    result["b"] = {"steps": steps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del t
+    free()
+
+    # (c) MoE: bf16 at the cut depth, then f32 at 2 + 2 blocks
+    cls = hisfrag.HisfragTrainer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    t = cls(hisfrag.parse_option(spec["moe_argv"]))
+    t.setup_training(10)
+    built = time.time() - t0
+    steps = []
+    A.reset_launch_counts()
+    np.random.seed(rank)
+    cp_recorder(cls.train_step, steps, comm)(
+        t, [t.prepare_data(*cp_batch(rank, CP_MOE_IMAGES))])
+    result["c"] = {"steps": steps, "launches": nonzero(A.launches), "built_s": built,
+                   "params": sum(p.numel() for p in t.model.parameters()),
+                   "banks": moe_bank_count(t.model),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+    del t
+    free()
+    t = cls(hisfrag.parse_option(spec["moe_f32_argv"]))
+    t.setup_training(1)
+    np.random.seed(rank)
+    batch = t.prepare_data(*cp_batch(rank, CP_MOE_F32, seed=2))
+    np.savez(res + ".moe32batch.npz", **batch)
+    f32 = []
+    cp_recorder(cls.train_step, f32, comm)(t, [batch])
+    result["c"]["f32"] = f32[0]
+    save_params(t.model, res + ".moe32.pt")
+    del t
+    free()
+    with open(res, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def cp_shapes(step):
+    return {tuple(s[:-1]): s[-1] for s in step["shapes"]}
+
+
+def cp_print_steps(card, label, results, key):
+    for r in results:
+        x = r[key]
+        print(f"  {card}: {label} rank {r['rank']}: losses "
+              f"{[round(s['loss'], 4) for s in x['steps']]}; ms per update (host clock "
+              f"around the step; the ranks time-slice one card) "
+              f"{[round(s['ms'], 1) for s in x['steps']]}, of it in gloo collectives "
+              f"{[round(s['comm_ms'], 1) for s in x['steps']]} "
+              f"({[round(100 * s['comm_ms'] / s['ms'], 1) for s in x['steps']]}%)", flush=True)
+    d0 = [s["digest"] for s in results[0][key]["steps"]]
+    d1 = [s["digest"] for s in results[1][key]["steps"]]
+    print(f"  {label}: parameters and buffers bit-equal across the ranks after each update: "
+          f"{[a == b for a, b in zip(d0, d1)]}", flush=True)
+    if not d0 or d0 != d1:
+        raise AssertionError(f"{label}: the ranks' states differ")
+
+
+def phase_coupled_hfv(card, tmp, run, results, data, out):
+    """23a's holds: the entry's updates on both ranks, then the f32 update
+    against one process on the concatenated batch."""
+    from vit_ed_tpu_torch import hisfrag_vit
+
+    print(f"== phase 23a: python -m vit_ed_tpu_torch.hisfrag_vit --mode train over 2 ranks, "
+          f"ViT-S/16 at 512 px, 2 x {HFV_BATCH} images, bf16, DropPath 0.1", flush=True)
+    cp_print_steps(card, "23a", results, "a")
+    for r in results:
+        a = r["a"]
+        print(f"  rank {r['rank']}: {a['step']} updates, {a['seconds']:.1f}s with model build "
+              f"and two validates; launches {a['launches']}; per update by shape (counter, "
+              f"B, Sq, Sk, launches) "
+              f"{sorted((k[0], k[1], k[3], k[4], n) for k, n in cp_shapes(a['steps'][-1]).items())}",
+              flush=True)
+        if len(a["steps"]) != 3 or a["step"] != 3:
+            raise AssertionError(f"23a: rank {r['rank']} took {len(a['steps'])} updates, not 3")
+        for s in a["steps"]:
+            if cp_shapes(s) != HFV_STEP_SHAPES or not np.isfinite(s["loss"]):
+                raise AssertionError(f"23a: unexpected launches or loss in an update: {s}")
+    t = hisfrag_vit.HisfragVitTrainer(hisfrag_vit.parse_option(hfv_argv(
+        data, out, "cp_hfv1p", "train", "--disable_amp", "--batch-size",
+        str(2 * CP_HFV_F32), opts=CP_SGD)))
+    t.setup_training(1)
+    loss, _ = t.train_step([t.prepare_data(*cp_concat(CP_HFV_F32))])
+    worst, at = worst_gap(t.model, run.results[0] + ".hfv32.pt")
+    got = results[0]["a"]["f32"]["loss"]
+    print(f"  f32 update 1 (2 x {CP_HFV_F32} images, classes across the ranks, SGD) "
+          f"against one process on the concatenated batch: loss {got:.6f} / "
+          f"{loss.item():.6f}, worst max|gap|/max {worst:.3e} at {at} (tol 1e-4)", flush=True)
+    if worst > 1e-4 or abs(got - loss.item()) > 1e-4 * abs(loss.item()):
+        raise AssertionError("23a: the two-rank update differs from one process's")
+    del t
+    torch.cuda.empty_cache()
+
+
+def phase_coupled_ss2(card, run, results, out):
+    """23b's holds: float64 ss2 on both ranks against one process."""
+    import copy
+
+    from vit_ed_tpu_torch.hisfrag_vit import parse_option
+
+    print(f"== phase 23b: ss2 (resnet34, 2048 / 512) at 512 px over 2 ranks, SyncBN, "
+          f"2 x {CP_SS2_IMAGES} images, float64, SGD", flush=True)
+    cp_print_steps(card, "23b", results, "b")
+    print(f"  peak device memory per rank {[round(r['b']['peak_gib'], 2) for r in results]} "
+          f"GiB", flush=True)
+    t = ss2_coupled_cls()(parse_option(bn_argv(
+        "ss2", out, "cp_ss2_1p", "none", "--disable_amp", "--batch-size",
+        str(2 * CP_SS2_IMAGES)) + list(CP_SGD)))
+    to_float64(t.model)
+    t.setup_training(1)
+    init = copy.deepcopy(t.model.state_dict())
+    images, labels = cp_concat(CP_SS2_IMAGES)
+    t.train_step([t.prepare_data(images, labels)])
+    saved = torch.load(run.results[0] + ".ss2.pt", weights_only=True)
+    # projector.fc3.bias feeds an affine-free BatchNorm: its gradient, and
+    # so its update from zero, is zero in exact arithmetic (phase 18c)
+    zero = "projector.fc3.bias"
+    worst, at = worst_gap(t.model, run.results[0] + ".ss2.pt", skip=(zero,))
+    one = {k: v.detach().cpu().clone() for k, v in t.model.state_dict().items()}
+    largest = max(float(v.abs().max()) for k, v in one.items() if "running_" not in k)
+    zero_read = max(float(saved[zero].abs().max()), float(one[zero].abs().max())) / largest
+    stats = stats_reading(saved, one)
+    # rank 0's batch alone: its own statistics, which a rank without SyncBN
+    # would keep
+    t.model.load_state_dict(init)
+    with torch.no_grad():
+        t.model.train()(torch.from_numpy(images[:CP_SS2_IMAGES]).cuda())
+    local = stats_reading({k: v.detach().cpu() for k, v in t.model.state_dict().items()}, one)
+    print(f"  float64 update 1 against one process on the concatenated batch: parameters "
+          f"worst max|gap|/max {worst:.3e} at {at}; running statistics {stats:.3e} (tol "
+          f"1e-4); {zero} {zero_read:.3e} of the largest parameter (tol 1e-10); rank 0's "
+          f"own batch's statistics read {local:.3e} against the global ones", flush=True)
+    if worst > 1e-4 or stats > 1e-4 or zero_read > 1e-10 or not local > 1e-4:
+        raise AssertionError("23b: the SyncBN update differs from one process's")
+    del t, init
+    torch.cuda.empty_cache()
+
+
+def phase_coupled_moe(card, tmp, run, results, data, out):
+    """23c's holds: the cut pjs-L MoE on both ranks, the global aux terms,
+    and the f32 update at 2 + 2 blocks against one process."""
+    import copy
+
+    from vit_ed_tpu_torch import hisfrag
+    from vit_ed_tpu_torch.models.moe import MoeMlp
+
+    pjs = get_config(types.SimpleNamespace(cfg=MOE_CFG, opts=list(MOE_ONE_CARD))).MODEL.PJS
+    c0 = results[0]["c"]
+    print(f"== phase 23c: the pjs-L MoE configuration over 2 ranks (embed {pjs.EMBED_DIM}, "
+          f"{pjs.NUM_HEADS} heads, {pjs.DEPTH} + {pjs.C_DEPTH} blocks, {pjs.MOE.EXPERTS} "
+          f"experts top-{pjs.MOE.ROUTE_K}, jitter {pjs.MOE.JITTER}, interval "
+          f"{pjs.MOE.INTERVAL}; no cut: one update of {CP_MOE_IMAGES} images per rank fits "
+          f"two ranks on the card): {c0['params'] / 1e9:.3f} B parameters, {c0['banks']} "
+          f"banks, bf16, AdamW", flush=True)
+    cp_print_steps(card, "23c", results, "c")
+    for r in results:
+        c = r["c"]
+        print(f"  rank {r['rank']}: built in {c['built_s']:.1f}s; peak device memory "
+              f"{c['peak_gib']:.2f} GiB, {c['free_gib']:.2f} GiB free on the card after the "
+              f"updates; aux terms (load balance, router z) of bank 0 per update "
+              f"{[[round(v, 5) for v in s['aux'][0]] for s in c['steps']]}; launches "
+              f"{c['launches']}", flush=True)
+        for name in TRAIN_PATH_FWD + TRAIN_PATH_BWD:
+            if c["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"23c: rank {r['rank']} never launched {name}")
+    if [s["aux"] for s in results[0]["c"]["steps"]] != [s["aux"] for s in results[1]["c"]["steps"]]:
+        raise AssertionError("23c: the ranks' aux terms differ")
+
+    argv = moe_argv(data, out, "cp_moe1p", "--disable_amp", "--batch-size",
+                    str(2 * CP_MOE_F32), opts=(*MOE_SHORT, *CP_SGD[2:]))
+    t = hisfrag.HisfragTrainer(hisfrag.parse_option(argv))
+    t.setup_training(1)
+    init = copy.deepcopy(t.model.state_dict())
+    parts = [dict(np.load(res + ".moe32batch.npz")) for res in run.results]
+    for k in ("gi", "gj"):
+        parts[1][k] = parts[1][k] + CP_MOE_F32
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    loss, _ = t.train_step([batch])
+    worst, at = worst_gap(t.model, run.results[0] + ".moe32.pt")
+    got = np.asarray(results[0]["c"]["f32"]["aux"])
+    want = t.moe_aux.float().cpu().numpy()
+    aux_gap = float(np.abs(got - want).max() / np.abs(want).max())
+    # the jitter-free terms of the global batch and of rank 0's own
+    t.model.load_state_dict(init)
+    banks = [m for m in t.model.modules() if isinstance(m, MoeMlp)]
+    for m in banks:
+        m.jitter = 0.0
+    images = torch.from_numpy(batch["samples"]).cuda()
+    with torch.no_grad():
+        glob = t.model.train().encode(images, with_aux=True)[1].float().cpu().numpy()
+        own = t.model.encode(images[:CP_MOE_F32], with_aux=True)[1].float().cpu().numpy()
+    print(f"  f32 update 1 at {MOE_SHORT[1]} + {MOE_SHORT[3]} blocks (every width, "
+          f"{len(banks)} bank; 2 x {CP_MOE_F32} images, jitter drawn for the global batch, "
+          f"SGD) against one process on the concatenated batch: loss "
+          f"{results[0]['c']['f32']['loss']:.6f} / {loss.item():.6f}; aux terms "
+          f"{got.tolist()} / {want.tolist()}, gap {aux_gap:.3e} of the max (tol 1e-6); "
+          f"parameters worst max|gap|/max {worst:.3e} at {at} (tol 1e-4); jitter-free load "
+          f"balance of the global batch {glob[:, 0].tolist()}, of rank 0's own "
+          f"{own[:, 0].tolist()}", flush=True)
+    if worst > 1e-4 or aux_gap > 1e-6 or not np.abs(glob[:, 0] - own[:, 0]).max() > 1e-6:
+        raise AssertionError("23c: the two-rank MoE update differs from one process's")
+    del t, init, images
+    torch.cuda.empty_cache()
+
+
+def phase_nccl_coupled(tmp, data):
+    """23d: one rank with the default backend (``cpu:gloo,cuda:nccl``):
+    ``all_reduce_sum`` and ``all_gather_rows`` on card tensors, values and
+    gradients, and a hisfrag_vit f32 update (the gathered triplet loss)
+    against the plain one-process ones, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vit_ed_tpu_torch import hisfrag_vit
+    from vit_ed_tpu_torch.parallel import mesh
+    from vit_ed_tpu_torch.parallel.mesh import CARD_BACKEND
+
+    argv = hfv_argv(data, os.path.join(tmp, "out"), "cp_nccl", "train", "--disable_amp",
+                    "--batch-size", str(CP_HFV_F32), opts=CP_SGD)
+    images, labels = cp_batch(0, CP_HFV_F32)
+    gen = torch.Generator("cuda").manual_seed(23)
+    x0 = torch.randn((5, 7), generator=gen, device="cuda")
+    w = torch.randn((5, 7), generator=gen, device="cuda")
+    calls, states = [], {}
+    originals = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def counted(name):
+        def call(tensor_or_list, *args, **kwargs):
+            t = args[0] if name == "all_gather" else tensor_or_list
+            calls.append((name, t.device.type, t.numel()))
+            return originals[name](tensor_or_list, *args, **kwargs)
+        return call
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for mode in ("plain", "nccl"):
+        if mode == "nccl":
+            dist.init_process_group(CARD_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                    world_size=1, rank=0)
+            dist.all_reduce, dist.all_gather = counted("all_reduce"), counted("all_gather")
+        try:
+            t = hisfrag_vit.HisfragVitTrainer(hisfrag_vit.parse_option(argv))
+            t.setup_training(1)
+            loss, _ = t.train_step([t.prepare_data(images, labels)])
+            got = [p.detach().clone() for p in t.model.parameters()] + [loss.detach()]
+            x = x0.clone().requires_grad_()
+            y = mesh.all_reduce_sum(x)
+            (y * w).sum().backward()
+            got += [y.detach(), x.grad]
+            x = x0.clone().requires_grad_()
+            z = mesh.all_gather_rows(x)
+            (z * w).sum().backward()
+            got += [z.detach(), x.grad]
+            states[mode] = (got, t.data_parallel)
+            del t
+        finally:
+            if mode == "nccl":
+                dist.all_reduce, dist.all_gather = (originals["all_reduce"],
+                                                    originals["all_gather"])
+                backend = dist.get_backend()
+                dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(states["plain"][0], states["nccl"][0]))
+    kinds = sorted({(n, d) for n, d, _ in calls})
+    print(f"  {card_line()}: 23d: one rank, backend {backend}: collectives {kinds} "
+          f"({len(calls)} calls: the gathered embeddings and labels, the anchor count, the "
+          f"gradients' all-reduce, the two collectives alone); the update, the loss, "
+          f"all_reduce_sum and all_gather_rows with their gradients equal the plain "
+          f"one-process ones bit for bit {same}", flush=True)
+    if not (same and states["nccl"][1] and not states["plain"][1]
+            and kinds == [("all_gather", "cuda"), ("all_reduce", "cuda")]):
+        raise AssertionError("23d: the NCCL collectives differ from the plain step")
+
+
+def phase_coupled(tmp):
+    """Phase 23: the coupled batch on two ranks that share the card over
+    gloo (one pair of children runs 23a-c in turn), then one NCCL rank."""
+    card = card_line()
+    t_phase = time.time()
+    print("== phase 23: the coupled batch on two ranks (WORLD_SIZE 2, LOCAL_RANK 0, gloo) "
+          "on one card, full widths, seed 0: SyncBN, the MoE banks' global aux terms, "
+          "hisfrag_vit's mining over the gathered batch. Two ranks that time-slice one "
+          "card check correctness: their times are no speedup", flush=True)
+    data, out = os.path.join(tmp, "cp_train"), os.path.join(tmp, "out")
+    # 5 train writers x 4 fragments x repeat 3: 3 updates of 16 per rank
+    write_corpus(data, writers=6, sub="train", seed=3)
+    spec = {
+        "hfv_argv": hfv_argv(data, out, "cp_hfv", "train", opts=(
+            "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "1",
+            "TRAIN.AUTO_RESUME", "False")),
+        "hfv_f32_argv": hfv_argv(data, out, "cp_hfv32", "train", "--disable_amp",
+                                 "--batch-size", str(CP_HFV_F32), opts=CP_SGD),
+        "ss2_argv": bn_argv("ss2", out, "cp_ss2", "none", "--disable_amp", "--batch-size",
+                            str(CP_SS2_IMAGES)) + list(CP_SGD),
+        "moe_argv": moe_argv(data, out, "cp_moe", "--batch-size", str(CP_MOE_IMAGES)),
+        "moe_f32_argv": moe_argv(data, out, "cp_moe32", "--disable_amp", "--batch-size",
+                                 str(CP_MOE_F32), opts=(*MOE_SHORT, *CP_SGD[2:])),
+    }
+    _HOLD.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card has "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
+    try:
+        run = MpRun(tmp, "23", None, None, child="--coupled-child", spec=spec,
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        results = run.finish(timeout=900)
+        print(f"  both ranks ran 23a-c in {run.seconds:.1f}s", flush=True)
+    finally:
+        mp_stop_all()
+    phase_coupled_hfv(card, tmp, run, results, data, out)
+    phase_coupled_ss2(card, run, results, out)
+    phase_coupled_moe(card, tmp, run, results, data, out)
+    print("== phase 23d: one rank with the default backend (cpu:gloo,cuda:nccl) through "
+          "both collectives", flush=True)
+    phase_nccl_coupled(tmp, data)
+    print(f"  phase 23 took {time.time() - t_phase:.1f}s on {card}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -5259,31 +5837,46 @@ def main():
     for line in ptxas_lines(_build.build_log):
         print("   ", line)
 
+    def mark(label):
+        print(f"  [{time.time() - t_start:.1f}s since the start: {label} done]", flush=True)
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     err = phase_kernels_vs_plain(gen)
     times = phase_times(gen)
     phase_model(gen)
+    mark("phases 1-4")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_native(tmp)
-        counts, scan5 = phase_main_path(tmp)
-        bwd_err = phase_backward_vs_plain(gen)
-        train_times = phase_backward_times(gen)
-        phase_gradients(tmp)
-        train_counts = phase_train_path(tmp)
-        heads_err = phase_heads_vs_plain(gen)
-        heads_times = phase_heads_times(gen)
-        phase_puzzle_model(tmp)
-        puzzle_shapes, puzzle_ckpt = phase_puzzle_path(tmp)
-        scan32_shapes = phase_heads_scan(tmp)
-        eval_shapes_run, eval_times, n_puzzles, eval15 = phase_puzzle_eval(
-            tmp, puzzle_ckpt, gen)
-        michigan_rows = phase_michigan(tmp, gen)
-        vit_rows = phase_vit(tmp, gen)
-        pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
-        phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt)
-        phase_slice12(tmp, gen, scan5)
-        phase_multiprocess(tmp, scan5)
+        try:
+            phase_native(tmp)
+            counts, scan5 = phase_main_path(tmp)
+            bwd_err = phase_backward_vs_plain(gen)
+            train_times = phase_backward_times(gen)
+            phase_gradients(tmp)
+            train_counts = phase_train_path(tmp)
+            mark("phases 5-9 and 14")
+            heads_err = phase_heads_vs_plain(gen)
+            heads_times = phase_heads_times(gen)
+            phase_puzzle_model(tmp)
+            puzzle_shapes, puzzle_ckpt = phase_puzzle_path(tmp)
+            scan32_shapes = phase_heads_scan(tmp)
+            mark("phases 10-13")
+            eval_shapes_run, eval_times, n_puzzles, eval15 = phase_puzzle_eval(
+                tmp, puzzle_ckpt, gen)
+            mark("phase 15")
+            michigan_rows = phase_michigan(tmp, gen)
+            vit_rows = phase_vit(tmp, gen)
+            pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
+            phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt)
+            serve, _ = phase_slice12(tmp, gen, scan5)
+            phase_multiprocess(tmp, scan5)
+            serve_children_finish(serve)
+            mark("phases 16-22")
+            phase_coupled(tmp)
+            mark("phase 23")
+        finally:
+            for proc in _BACKGROUND:      # 20(e) and (f) if a phase failed first
+                serve_cli_stop(proc)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -5391,4 +5984,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-child"]:
         sys.exit(rank_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--coupled-child"]:
+        sys.exit(coupled_child(sys.argv[2]))
     sys.exit(main())

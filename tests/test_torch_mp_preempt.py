@@ -1,6 +1,6 @@
 """Two ranks of the port (gloo, on the CPU) that lose one of them: a SIGTERM
 to one rank of a DIV2K training, a crash in the middle of a pair scan, and
-the entries that refuse several processes (ROADMAP A7c).
+the entries that refuse several processes.
 
 - SIGTERM to rank 1 only: both ranks save at the same update and exit 0
   (the guard's agreement, ``utils/preempt.py``); the rerun continues that
@@ -11,9 +11,11 @@ the entries that refuse several processes (ROADMAP A7c).
   merge or, past a short group timeout, is killed by the test. The rerun
   scores no block that has a file, and its matrix equals an uninterrupted
   run's bit for bit.
-- A BatchNorm type, MoE, ``hisfrag_vit`` and ``lr_finder`` raise on two
-  ranks, naming A7c; an entry without a multi-process path raises under
-  ``WORLD_SIZE`` 2.
+- On two ranks a BatchNorm type, MoE and ``hisfrag_vit`` build their
+  trainers (their statistics and losses are the global batch's:
+  tests/test_torch_mp_coupled.py), while ``lr_finder`` raises, saying why,
+  and a mesh switch raises naming A12b; an entry without a multi-process
+  path raises under ``WORLD_SIZE`` 2.
 
 Run as ``python tests/test_torch_mp_preempt.py <outdir> scan|refuse``, the
 file is the worker of the last two.
@@ -86,7 +88,8 @@ def _scan_worker(outdir):
 
 
 def _refuse_worker(outdir):
-    """Each entry that refuses two ranks: the message it raises with."""
+    """Each trainer's construction on two ranks: None where it builds, the
+    message it raises with where it refuses."""
     from vit_ed_tpu_torch import hisfrag_vit, lr_finder, main
     from vit_ed_tpu_torch.parallel import mesh
 
@@ -94,17 +97,22 @@ def _refuse_worker(outdir):
     rank = mesh.process_index()
     common = ["--device", "cpu", "--output", os.path.join(outdir, "o"),
               "--tag", f"r{rank}"]
+    vit = ["MODEL.TYPE", "vit", "MODEL.VIT.EMBED_DIM", "32", "MODEL.VIT.NUM_HEADS", "2",
+           "MODEL.VIT.DEPTH", "1", "DATA.IMG_SIZE", "32"]
     cases = {
-        "resnet": (main.main, ["--cfg", CFG, "--opts", "MODEL.TYPE", "resnet"]),
-        "moe": (main.main, ["--cfg", CFG, "--opts", "MODEL.PJS.MOE.EXPERTS", "4"]),
-        "hisfrag_vit": (hisfrag_vit.main, ["--cfg", HISFRAG_CFG, "--opts",
-                                           "MODEL.TYPE", "vit"]),
-        "lr_finder": (lr_finder.main, ["--cfg", CFG]),
+        "resnet": (main, ["--cfg", CFG, "--opts", "MODEL.TYPE", "resnet",
+                          "MODEL.RES.ARCH", "resnet18"]),
+        "moe": (main, ["--cfg", CFG, "--opts", *TINY, "MODEL.PJS.MOE.EXPERTS", "4"]),
+        "hisfrag_vit": (hisfrag_vit, ["--cfg", HISFRAG_CFG, "--opts", *vit]),
+        "lr_finder": (lr_finder, ["--cfg", CFG]),
+        "mesh": (hisfrag_vit, ["--cfg", HISFRAG_CFG, "--opts", *vit, "TPU.MESH_SHAPE", "[2]"]),
     }
     said = {}
     for name, (entry, argv) in cases.items():
+        cls = {main: main.DefaultTrainer, hisfrag_vit: hisfrag_vit.HisfragVitTrainer,
+               lr_finder: lr_finder.LrFinderTrainer}[entry]
         try:
-            entry(argv[:2] + common + argv[2:])
+            cls(entry.parse_option(argv[:2] + common + argv[2:]))
             said[name] = None
         except NotImplementedError as e:
             said[name] = str(e)
@@ -219,17 +227,19 @@ def test_coupled_batches_refuse_two_ranks(tmp_path):
     _finish(launch([__file__, str(tmp_path), "refuse"]))
     for rank in range(2):
         said = json.loads((tmp_path / f"refuse_rank{rank}.json").read_text())
-        assert set(said) == {"resnet", "moe", "hisfrag_vit", "lr_finder"}
-        for name, msg in said.items():
-            assert msg and "ROADMAP A7c" in msg, (name, msg)
-        assert "SyncBN" in said["resnet"] and "MOE" in said["moe"]
+        assert set(said) == {"resnet", "moe", "hisfrag_vit", "lr_finder", "mesh"}
+        # the coupled batches run on two ranks (SyncBN, the global aux
+        # terms, the gathered mining); lr_finder says why it refuses
+        assert said["resnet"] is None and said["moe"] is None and said["hisfrag_vit"] is None
+        assert "no collective" in said["lr_finder"] and "one process" in said["lr_finder"]
+        assert "item 12b" in said["mesh"]
 
 
 def test_entry_without_processes_refuses_world(monkeypatch):
     from vit_ed_tpu_torch.device import resolve_device
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A7c"):
+    with pytest.raises(NotImplementedError, match="joins no process group"):
         resolve_device("cpu")
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert resolve_device("cpu").type == "cpu"

@@ -9,8 +9,16 @@ Under a launch of several processes (``WORLD_SIZE`` > 1) a rank's card is
 that runs several processes joins the process group first
 (``parallel.mesh.maybe_init_distributed``); one that does not is refused
 here, so that two ranks never run as two independent copies writing one
-output directory. Two ranks of one host may name the same card only over
-gloo: NCCL refuses that, and the check says so before it does.
+output directory. Those are the entries whose JAX counterparts build no
+``Trainer``, the JAX package's only rendezvous
+(``vit_ed_tpu/train/engine.py:164``): puzzle ``evaluation`` (root
+``evaluation.py:120``, a mesh of the local devices at :60),
+``export_serving`` (``scripts/export_serving.py:53``, local devices at :90),
+``serve`` (``vit_ed_tpu/serve/server.py:340``, local devices at :361) and
+``visualise_attentions`` (``scripts/visualise_attentions.py:59``); so
+several processes have no result of theirs to reproduce. Two ranks of one
+host may name the same card only over gloo: NCCL refuses that, and the
+check says so before it does.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ def resolve_device(arg: Optional[Union[str, torch.device]] = None) -> torch.devi
     world = mesh.env_world_size()
     if world > 1 and not dist.is_initialized():
         raise NotImplementedError(
-            f"WORLD_SIZE {world}: this entry runs in one process; several "
-            f"processes run the trainers' entries only (ROADMAP A7c)")
+            f"WORLD_SIZE {world}: this entry runs in one process, as its JAX "
+            f"counterpart does (it joins no process group: only the trainers' "
+            f"entries do); run it without a multi-process launcher")
     dev = torch.device("cuda" if arg is None else arg)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

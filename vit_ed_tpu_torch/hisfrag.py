@@ -32,7 +32,8 @@ is given.
 Several processes (``torchrun --nproc_per_node N -m
 vit_ed_tpu_torch.hisfrag ...``): training mines each rank's pairs inside its
 own local batch (its pair indices read its own images) and the loss is the
-global masked mean, the local masked sum over the global live-pair count;
+global masked mean, the local masked sum over the global live-pair count
+(with this rank's share of the expert banks' global aux terms);
 the scans split the rows (``score_dataset(rank=, world_size=)``), the
 assembled matrix is merged on every rank and the sharded metrics' partials
 are gathered, and rank 0 alone logs the metrics and writes the CSV.
@@ -56,7 +57,7 @@ from vit_ed_tpu_torch.data.samplers import MPerClassSampler
 from vit_ed_tpu_torch.metrics import get_metrics
 from vit_ed_tpu_torch.metrics.wi19_sharded import merge_partials, row_partials
 from vit_ed_tpu_torch.ops.gather import gather_rows
-from vit_ed_tpu_torch.parallel.mesh import allreduce_sum, process_allgather
+from vit_ed_tpu_torch.parallel.mesh import host_allreduce_sum, process_allgather
 from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
 from vit_ed_tpu_torch.train.engine import Trainer, moe_aux_weights
 from vit_ed_tpu_torch.train.losses import bce_with_logits, masked_bce_with_logits
@@ -163,7 +164,7 @@ class HisfragTrainer(Trainer):
         all-reduce of the micro-batches' counts (``pair_count``)."""
         if self.LOSS_REDUCTION != "mean":
             return
-        counts = allreduce_sum(np.asarray(
+        counts = host_allreduce_sum(np.asarray(
             [int(b["pair_mask"].sum()) for b in micro_batches], np.int64))
         for b, c in zip(micro_batches, counts):
             b["pair_count"] = np.asarray([max(int(c), 1)], np.float32)
@@ -239,12 +240,12 @@ class HisfragTrainer(Trainer):
             t = gather_rows(tokens, batch["gi"].long())
             logits = model.score_tokens(f, t)
             if "pair_count" in batch:   # several processes: the global mean
-                return masked_bce_with_logits(
+                loss = masked_bce_with_logits(
                     logits.float(), batch["pair_targets"], batch["pair_mask"],
                     reduction="sum") / batch["pair_count"].reshape(())
-            loss = masked_bce_with_logits(logits.float(), batch["pair_targets"],
-                                          batch["pair_mask"],
-                                          reduction=reduction)
+            else:
+                loss = masked_bce_with_logits(logits.float(), batch["pair_targets"],
+                                              batch["pair_mask"], reduction=reduction)
             return self.add_moe_aux(loss, aux) if with_aux else loss
 
         return loss_fn

@@ -18,6 +18,13 @@ results: mAP ...`` / ``Test results: ...``. ``--mode throughput`` times
 forwards of one val batch (the JAX entry raises here: it asks its dataset
 factory for a "validation" split that HisFrag20 does not have). Runs on
 the CUDA card unless ``--device cpu`` is given.
+
+Several processes (``torchrun --nproc_per_node N -m
+vit_ed_tpu_torch.hisfrag_vit --mode train ...``): each rank samples its own
+M-per-class batches (seed ``SEED + rank``, as the JAX entry) and mines its
+anchors over the gathered global batch (``batch_wise_triplet_loss``), so
+that the update is one process's on the concatenated batch; the eval modes
+run whole on every rank.
 """
 
 from __future__ import annotations
@@ -79,9 +86,6 @@ def compute_distance_matrix_from_embeddings(embeddings: np.ndarray,
 class HisfragVitTrainer(PairHisfragTrainer):
     """The pairwise trainer's data plumbing with an embedding loss."""
 
-    ONE_PROCESS_ONLY = ("hisfrag_vit: the batch-hard triplet loss mines "
-                        "over the global batch's labels")
-
     def get_criterion(self):
         return None
 
@@ -92,6 +96,11 @@ class HisfragVitTrainer(PairHisfragTrainer):
 
         return loss_fn
 
+    def share_batches(self, micro_batches) -> None:
+        """Nothing: the triplet loss divides by the global count of valid
+        anchors itself, so each rank's loss is its share of the global loss
+        (the inherited ``rank_loss_weight`` 1)."""
+
     def prepare_data(self, samples, targets):
         # uint8 stays uint8 (the u8 wire: the model normalizes on the
         # device); anything else goes float32
@@ -100,8 +109,8 @@ class HisfragVitTrainer(PairHisfragTrainer):
                 "targets": np.asarray(targets, np.int32)}
 
     def get_dataloader(self, mode):
-        """M-per-class, drop-last batches for ``train`` (seeded SEED + rank,
-        rank 0 here); the eval splits in order, the last batch short."""
+        """M-per-class, drop-last batches for ``train`` (seeded SEED +
+        rank); the eval splits in order, the last batch short."""
         if mode in self.data_loader_registers:
             return self.data_loader_registers[mode]
         dataset, repeat = build_dataset(mode=mode, config=self.config,
@@ -109,7 +118,7 @@ class HisfragVitTrainer(PairHisfragTrainer):
         if mode == "train":
             sampler = MPerClassSampler(dataset.data_labels, m=3,
                                        length_before_new_iter=len(dataset) * repeat,
-                                       seed=self.config.SEED)
+                                       seed=self.config.SEED + self.rank)
             drop_last = True
         else:
             sampler, drop_last = None, False

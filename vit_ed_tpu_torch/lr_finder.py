@@ -61,7 +61,11 @@ def parse_option(argv: Optional[List[str]] = None):
 
 class LrFinderTrainer(Trainer):
 
-    ONE_PROCESS_ONLY = "lr_finder: its sweep steps without the all-reduce"
+    # the JAX sweep (root lr_finder.py:54-77) jits its step on each
+    # process's own jnp.asarray batch, with no collective
+    ONE_PROCESS_ONLY = ("lr_finder: the JAX sweep steps on each process's own "
+                        "batch with no collective, so several processes have no "
+                        "global-batch result to reproduce; run it in one process")
 
     def get_criterion(self):
         return bce_with_logits

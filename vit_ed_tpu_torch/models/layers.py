@@ -139,10 +139,12 @@ class Dropout(DropPath):
 
 
 def shard_draws(model: nn.Module, rank: int, world: int) -> None:
-    """Make every DropPath / Dropout of ``model`` draw rank ``rank``'s rows
-    of the mask of a global batch of ``world`` local batches."""
+    """Make every module of ``model`` that draws per sample (DropPath,
+    Dropout, the MoE router's jitter: each with a ``shard`` attribute) draw
+    rank ``rank``'s rows of the draws of a global batch of ``world`` local
+    batches."""
     for m in model.modules():
-        if isinstance(m, DropPath):
+        if hasattr(m, "shard"):
             m.shard = (rank, world)
 
 

@@ -22,7 +22,16 @@ Beyond the reference, whose model family is dense, as in the JAX package:
   (``TRAIN.USE_CHECKPOINT``) cannot count them twice;
 - the router-input jitter of training (``x * U(1 - j, 1 + j)``, Switch
   §2.2) draws from the model-owned generator (``layers.seed_generators``),
-  in training mode only.
+  in training mode only. Data-parallel (``layers.shard_draws`` sets
+  ``shard``), it draws the global batch's noise and keeps this rank's rows,
+  as DropPath does;
+- several processes in training mode (a process group of more than one
+  rank) give the aux terms of the global batch's tokens, as the JAX module
+  under jit over the global mesh does: ``f``, ``P`` and the z term's mean
+  are one all-reduce (``parallel.mesh.all_reduce_sum``, its gradient
+  reaching ``P`` and z) over the ranks' equal token counts, divided by the
+  world size; the load balance is their product, not a mean of each
+  rank's own. Dispatch and capacity stay per sequence.
 
 Parameters (the flax leaves' layout except the router, a torch Linear
 weight): ``router.weight`` [E, D], ``w1`` [E, D, H], ``b1`` [E, H], ``w2``
@@ -39,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ed_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
+from vit_ed_tpu_torch.parallel.mesh import all_reduce_sum, group_world
 
 
 def collect_moe_aux(aux: torch.Tensor, balance_weight: float,
@@ -65,6 +75,7 @@ class MoeMlp(nn.Module):
         self.jitter = jitter
         self.act = gelu_tanh if fast_gelu else gelu_exact
         self.generator: Optional[torch.Generator] = None
+        self.shard = (0, 1)   # (rank, world) of the rows x holds
         e = num_experts
         self.router = nn.Linear(dim, e, bias=False)
         self.w1 = nn.Parameter(torch.empty(e, dim, hidden_dim))
@@ -89,8 +100,11 @@ class MoeMlp(nn.Module):
                     "MoeMlp's router jitter in training mode needs a seeded "
                     "generator: call the model's seed_drop_path(seed) after "
                     "moving the model to its device")
-            noise = torch.rand(xr.shape, generator=self.generator,
+            rank, world = self.shard
+            noise = torch.rand((b * world,) + xr.shape[1:], generator=self.generator,
                                dtype=torch.float32, device=xr.device)
+            if world > 1:
+                noise = noise[rank * b:(rank + 1) * b]
             xr = xr * (noise * (2.0 * self.jitter) + (1.0 - self.jitter))
         logits = F.linear(xr, self.router.weight)
         probs = torch.softmax(logits, dim=-1)
@@ -102,8 +116,12 @@ class MoeMlp(nn.Module):
 
         frac = oh[:, :, 0, :].mean(dim=(0, 1))                   # [E]
         mean_p = probs.mean(dim=(0, 1))
-        aux = torch.stack([e * (frac * mean_p).sum(),
-                           (torch.logsumexp(logits, dim=-1) ** 2).mean()])
+        z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+        world = group_world() if self.training else 1
+        if world > 1:
+            means = all_reduce_sum(torch.cat([frac, mean_p, z[None]])) / world
+            frac, mean_p, z = means[:e], means[e:2 * e], means[2 * e]
+        aux = torch.stack([e * (frac * mean_p).sum(), z])
 
         dispatch = x.new_zeros((b, t, e, c), dtype=torch.float32)
         combine = torch.zeros_like(dispatch)

@@ -28,6 +28,13 @@ Numerics follow flax with a compute dtype:
   ``nn.BatchNorm`` with flax's default momentum, 0.99, the weight of the
   old value (``torch.nn.BatchNorm2d`` would take 0.1 of the batch and keep
   the unbiased variance);
+- several processes (a process group of more than one rank) normalise by
+  the global batch's statistics, as flax under jit over the global mesh
+  does (SyncBN): one all-reduce per layer of ``[sum x, sum x^2, n]`` in the
+  statistics dtype, with its gradient (``parallel.mesh.all_reduce_sum``),
+  then ``mean = sum x / N`` and the biased variance ``max(0, sum x^2 / N -
+  mean^2)``; the running statistics move by these global values, so they
+  stay equal on every rank. Eval mode reads the running statistics alone;
 - ``StarReLU`` squares in the input dtype and scales by its float32
   scalars, so its output is float32 (JAX's promotion, which torch's
   matches), as is the MetaFormer residual stream after the first
@@ -43,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ed_tpu_torch.models.layers import Linear, normalize_images, seed_generators
+from vit_ed_tpu_torch.parallel.mesh import all_reduce_sum, group_world
 
 # arch -> (block, blocks per stage, channels out of the last stage)
 ARCHS = {
@@ -107,8 +115,16 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if group_world() > 1:
+                c = xf.shape[1]
+                sums = all_reduce_sum(torch.cat([
+                    xf.sum(dims), (xf * xf).sum(dims),
+                    xf.new_full((1,), xf.numel() // c)]))
+                mean = sums[:c] / sums[2 * c]
+                var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+            else:
+                mean = xf.mean(dims)
+                var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1 - self.momentum) * mean)

@@ -18,11 +18,27 @@ over a gloo group of their own (every rank calls them in the same order):
   leading axis padded with zeros to the largest rank's;
 - ``broadcast_one_to_all(x, is_source)``: the one source rank's ``x`` on
   every rank;
-- ``allreduce_sum(x)``: the elementwise sum over ranks;
+- ``host_allreduce_sum(x)``: the elementwise sum over ranks (a numpy
+  sum with no gradient, unlike the tensor ``all_reduce_sum`` below);
 - ``barrier()``.
 
 With one process each is the identity on its input (``process_allgather``
 adds the leading axis).
+
+Two tensor collectives carry a gradient, for a loss or a statistic of the
+global batch (SyncBN, the MoE aux terms, batch-hard mining); they run on
+the default group, over gloo or NCCL, on CPU and CUDA tensors:
+
+- ``all_reduce_sum(x)``: the elementwise sum over ranks; its backward is
+  the all-reduce SUM of the gradient (every rank's loss reads the sum);
+- ``all_gather_rows(x)``: every rank's rows concatenated in rank order
+  (equal row counts); its backward all-reduces the whole gradient and
+  keeps this rank's rows.
+
+A group of one rank runs the same code; with no group they are the
+identity, and ``group_world`` raises where the launcher's environment
+names several processes but no group is up: a rank never stands in for the
+global batch with its own.
 """
 
 from __future__ import annotations
@@ -35,9 +51,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["allreduce_sum", "barrier", "broadcast_one_to_all", "check_world",
-           "env_world_size", "maybe_init_distributed", "process_allgather",
-           "process_count", "process_index"]
+__all__ = ["all_gather_rows", "all_reduce_sum", "barrier", "broadcast_one_to_all",
+           "check_world", "env_world_size", "group_world", "host_allreduce_sum",
+           "maybe_init_distributed", "process_allgather", "process_count",
+           "process_index"]
 
 _HOST_GROUP = None
 CARD_BACKEND = "cpu:gloo,cuda:nccl"
@@ -146,7 +163,7 @@ def broadcast_one_to_all(x: np.ndarray, is_source: bool) -> np.ndarray:
     return buf.numpy().view(x.dtype).reshape(x.shape)
 
 
-def allreduce_sum(x) -> np.ndarray:
+def host_allreduce_sum(x) -> np.ndarray:
     """The elementwise sum of ``x`` (a number or an integer / float64
     array) over the ranks, on every rank."""
     x = np.asarray(x)
@@ -155,3 +172,68 @@ def allreduce_sum(x) -> np.ndarray:
     t = torch.from_numpy(np.array(x, copy=True))
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_host_group())
     return t.numpy()
+
+
+def group_world() -> int:
+    """The process count of the default group (1 without one) for a
+    statistic of the global batch. Raises where the launcher's environment
+    names several processes but no group is up."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if env_world_size() > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE {env_world_size()} but no process group is up: a "
+            f"statistic of the global batch needs the group "
+            f"(parallel/mesh.py maybe_init_distributed)")
+    return 1
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        return grad
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x)
+        ctx.rows = (dist.get_rank() * x.shape[0], x.shape[0])
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        start, n = ctx.rows
+        return grad[start:start + n]
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum of ``x`` over the default group's ranks, on
+    every rank; the gradient of each rank's ``x`` is the sum over ranks of
+    the output's gradient. The identity without a group."""
+    if not dist.is_initialized():
+        group_world()          # raises under WORLD_SIZE > 1
+        return x
+    return _AllReduceSum.apply(x)
+
+
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """[world x rows, ...]: every rank's ``x`` (equal shapes) in rank
+    order; the gradient of this rank's ``x`` is its rows of the sum over
+    ranks of the output's gradient. The identity without a group."""
+    if not dist.is_initialized():
+        group_world()          # raises under WORLD_SIZE > 1
+        return x
+    return _AllGatherRows.apply(x)

@@ -59,9 +59,10 @@ program over every process's local batch does:
 
 - each rank draws its own batches (the samplers take ``num_replicas`` =
   the process count; host seeds are ``SEED + rank``), while the model's
-  initial weights and its DropPath / Dropout generator are seeded with
-  ``SEED`` on every rank, and each of those modules draws the mask of the
-  global batch and keeps its own rows (``models.layers.shard_draws``);
+  initial weights and its DropPath / Dropout / MoE-jitter generator are
+  seeded with ``SEED`` on every rank, and each of those modules draws the
+  global batch's draws and keeps its own rows
+  (``models.layers.shard_draws``);
 - the LR scales by the global batch ``BATCH_SIZE x world / 256``;
 - after the backward, one all-reduce SUM of the gradients (and of the
   loss) over the default group, before the clip, so that the clip reads
@@ -78,12 +79,17 @@ program over every process's local batch does:
 - the preemption guard agrees across ranks (``utils/preempt.py``); the
   MFU line counts the global FLOPs over ``world`` cards.
 
-Several processes are refused, naming ROADMAP A7c, where a loss or a
-statistic couples samples across the global batch, which a rank's local
-computation would give otherwise: the BatchNorm types (their statistics are
-the global batch's in JAX), MoE (balance and z terms over global tokens),
-and a subclass's ``ONE_PROCESS_ONLY`` reason. A device mesh and every
-parallelism switch raise, naming ROADMAP A12b.
+Where a loss or a statistic couples the samples of the global batch, it is
+the global batch's, as in the JAX trainer's one program over the global
+mesh, through the gradient-carrying collectives of ``parallel/mesh.py``:
+the BatchNorm types normalise by the global statistics (SyncBN,
+``models/resnet.py``), the MoE banks' balance and z terms are means over
+the global tokens (``models/moe.py``; ``add_moe_aux`` gives each rank its
+share of them), and ``hisfrag_vit`` mines its triplets over the gathered
+batch (``train/losses.py``). A subclass whose JAX counterpart has no
+global-batch result to reproduce says why in ``ONE_PROCESS_ONLY`` and is
+refused (``lr_finder``). A device mesh and every parallelism switch raise,
+naming ROADMAP A12b.
 """
 
 from __future__ import annotations
@@ -110,8 +116,8 @@ from vit_ed_tpu_torch.models.build import build_model
 from vit_ed_tpu_torch.models.layers import shard_draws
 from vit_ed_tpu_torch.models.moe import collect_moe_aux
 from vit_ed_tpu_torch.parallel.mesh import (
-    allreduce_sum,
     barrier,
+    host_allreduce_sum,
     maybe_init_distributed,
     process_count,
     process_index,
@@ -152,7 +158,7 @@ class Trainer:
     """Template trainer. Subclasses override ``get_criterion`` / ``validate``
     and optionally the data and loss hooks."""
 
-    # why a subclass refuses several processes (ROADMAP A7c), or None
+    # why a subclass refuses several processes, or None
     ONE_PROCESS_ONLY: Optional[str] = None
 
     def __init__(self, args):
@@ -170,8 +176,10 @@ class Trainer:
                 "TPU.MESH_SHAPE / TPU.MESH_AXES: the port trains on one "
                 "device per process; meshes and parallelism are ROADMAP "
                 "queue A item 12b")
-        if self.world_size > 1:
-            self._refuse_coupled_batch()
+        if self.world_size > 1 and self.ONE_PROCESS_ONLY:
+            raise NotImplementedError(
+                f"several processes (WORLD_SIZE {self.world_size}) are refused: "
+                f"{self.ONE_PROCESS_ONLY}")
 
         set_seed(self.config.SEED)
 
@@ -248,22 +256,6 @@ class Trainer:
             # draws are each rank's own
             set_seed(self.config.SEED + self.rank)
 
-    def _refuse_coupled_batch(self) -> None:
-        """Raise for several processes where a loss or a statistic couples
-        the samples of the global batch (ROADMAP A7c)."""
-        config = self.config
-        reason = self.ONE_PROCESS_ONLY
-        if config.MODEL.TYPE in LAYER_COUNTED:
-            reason = (f"MODEL.TYPE {config.MODEL.TYPE}: BatchNorm statistics "
-                      f"over the global batch (SyncBN)")
-        elif config.MODEL.TYPE == "pjs" and config.MODEL.PJS.MOE.EXPERTS > 0:
-            reason = ("MODEL.PJS.MOE: the balance and z terms over the "
-                      "global batch's tokens")
-        if reason:
-            raise NotImplementedError(
-                f"several processes (WORLD_SIZE {self.world_size}) are not "
-                f"ported for {reason} (ROADMAP A7c)")
-
     # ------------------------------------------------------------- data hooks
     def get_transforms(self) -> Dict[str, Callable]:
         transform = TwoImgSyncEval(self.config.DATA.IMG_SIZE)
@@ -310,9 +302,15 @@ class Trainer:
 
     def add_moe_aux(self, loss: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
         """``loss`` plus the weighted aux terms (``collect_moe_aux``); keeps
-        them for the log line."""
+        them for the log line. On several processes the terms are the global
+        batch's on every rank, so each rank adds the share that
+        ``rank_loss_weight`` turns into ``1 / world`` of them."""
         self.moe_aux = aux.detach()
-        return loss + collect_moe_aux(aux, *moe_aux_weights(self.config))
+        weighted = collect_moe_aux(aux, *moe_aux_weights(self.config))
+        world = process_count()
+        if world > 1:
+            weighted = weighted / (world * self.rank_loss_weight())
+        return loss + weighted
 
     def make_loss_fn(self, criterion: Callable) -> LossFn:
         """``loss_fn(model, batch) -> scalar loss`` on the device tensors of
@@ -458,7 +456,7 @@ class Trainer:
         loss = self.validate()
         if self.world_size == 1:
             return loss
-        return float(allreduce_sum(np.float64(loss))) / self.world_size
+        return float(host_allreduce_sum(np.float64(loss))) / self.world_size
 
     def _save(self, epoch: int, name: str, in_epoch_opt_steps: int = 0) -> str:
         """``in_epoch_opt_steps > 0`` marks a mid-epoch (preemption) save:
@@ -643,7 +641,7 @@ class Trainer:
         if len(sync_rates) >= 3:   # one or two intervals are noise
             counted = None if None in step_flops else float(np.mean(step_flops))
             if counted is not None and self.world_size > 1:
-                counted = float(allreduce_sum(np.float64(counted)))
+                counted = float(host_allreduce_sum(np.float64(counted)))
             self._log_mfu(float(np.median(sync_rates)), counted,
                           self.config.MODEL.TYPE, self.world_size)
 

@@ -18,6 +18,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from vit_ed_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_sum, process_index
+
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     reduction: str = "mean") -> torch.Tensor:
@@ -69,10 +71,21 @@ def batch_wise_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor,
                             margin: float = 0.2) -> torch.Tensor:
     """Batch-hard triplet loss over in-batch label equality: per anchor the
     farthest positive and the nearest negative; anchors without a positive
-    or without a negative count zero and are left out of the mean."""
-    d = cosine_distance(embeddings[:, None, :], embeddings[None, :, :])
-    same = labels[:, None] == labels[None, :]
-    eye = torch.eye(labels.shape[0], dtype=torch.bool, device=labels.device)
+    or without a negative count zero and are left out of the mean.
+
+    The batch is the global batch of the default process group (the JAX
+    loss under jit over the global mesh): this rank's anchors against every
+    rank's embeddings and labels (``all_gather_rows``, whose backward brings
+    the other ranks' gradients to this rank's rows), self left out by global
+    index, the sum divided by the global count of valid anchors. The ranks'
+    losses then sum to the global loss. Without a group it is the plain
+    loss of this batch."""
+    n = labels.shape[0]
+    others, other_labels = all_gather_rows(embeddings), all_gather_rows(labels)
+    d = cosine_distance(embeddings[:, None, :], others[None, :, :])
+    same = labels[:, None] == other_labels[None, :]
+    rows = torch.arange(n, device=labels.device)[:, None] + process_index() * n
+    eye = rows == torch.arange(other_labels.shape[0], device=labels.device)[None, :]
     pos_mask = same & ~eye
     neg_mask = ~same
     inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
@@ -80,8 +93,8 @@ def batch_wise_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor,
     d_neg = torch.where(neg_mask, d, inf).amin(dim=1)
     valid = pos_mask.any(dim=1) & neg_mask.any(dim=1)
     loss = _hinge(d_pos - d_neg + margin)
-    return (torch.where(valid, loss, torch.zeros_like(loss)).sum()
-            / valid.sum().clamp(min=1))
+    count = all_reduce_sum(valid.sum())
+    return torch.where(valid, loss, torch.zeros_like(loss)).sum() / count.clamp(min=1)
 
 
 def negative_cosine_similarity(predict: torch.Tensor, actual: torch.Tensor) -> torch.Tensor:
