@@ -201,8 +201,11 @@ nothing from the JAX package. Phases, each printing its own lines:
     vit_ed_tpu_torch.export_serving --batch-sizes 8,64 --verify`` (exit 0,
     two buckets of every stage) and (f) ``python -m vit_ed_tpu_torch.serve
     --bundle <(a)'s bundle>`` (one ``/v1/score`` against the live model),
-    each in a child process that runs on beside phases 21 and 22 and is read
-    after them;
+    each in a child process, (e) started with phases 22-24's child and (f)
+    in phase 20, that run on beside the other phases and are read after
+    phases 22-24; phase 20 and 19d run beside phases 22-24's child, so
+    their times and rates are taken on a shared card (not comparable with
+    runs that took them alone);
 21. MoE on one card: ``configs/scale/hisfrag20_pjsL_moe_hybrid.yaml``
     without its mesh and its TP / SP / EP / FSDP switches (pjs-L: embed 1,024,
     16 heads x 64, 24 + 24 blocks, 8 experts on every second encoder block,
@@ -250,14 +253,48 @@ nothing from the JAX package. Phases, each printing its own lines:
     updates: the ranks bit-equal, update 1's parameters and running
     statistics within 1e-4 of one process's, and rank 0's own batch's
     statistics far from the global ones; (c) the pjs-L MoE configuration
-    at its full widths and depth, 2 x 4 images, one bf16 update (what fits
-    two ranks on the card): the ranks bit-equal with equal global aux
+    at its full widths and 12 + 12 of its 24 + 24 blocks (at full depth two
+    ranks leave 6 GiB of the card free, too little to run beside another
+    phase), 2 x 4 images, one bf16 update: the ranks bit-equal with equal
+    global aux
     terms, peak memory per rank, the pair kernels forward and backward on
     every rank; then one f32 update at 2 + 2 blocks against one process's
     (parameters within 1e-4, aux terms within 1e-6); (d) one rank with the
     default backend: ``all_reduce_sum`` and ``all_gather_rows`` and a
     hisfrag_vit update through them over NCCL equal the plain ones bit for
     bit.
+24. the process mesh (``TPU.MESH_SHAPE`` / ``MESH_AXES``) with FSDP, tensor
+    and expert parallelism: children ``python chip_smoke.py --mesh-child
+    <spec>`` on gloo ranks that share the card, every case's ranks started
+    together, each driving the entry's ``main(argv)`` in bf16 for 3 updates
+    (each update's host ms and the share of it in gloo collectives, the
+    launches by shape, the gathered parameters bit-equal across the ranks
+    after every update, peak memory and the bytes of parameters and AdamW
+    moments each rank holds) and one f32 SGD update of a seeded global
+    batch against one process's within 1e-5 of each parameter's max (with
+    its bytes and peak): (a) ``main --cfg configs/scale/div2k_pjsS_fsdp.yaml``
+    on 2 ranks, ``[2]`` (2 x 64 pairs), and which collectives gloo takes on
+    CUDA tensors; (b) ``hisfrag --cfg configs/scale/hisfrag20_pjsL_tp_sp.yaml
+    --opts TPU.MESH_SHAPE [1, 2] TPU.SEQ_PARALLEL False`` on 2 ranks at 2 + 2
+    blocks (23c's cut; 1,024 wide, 16 heads, 512 px), and each rank's 8 heads
+    through the pair kernels (qkv and kv, f32 and bf16) bit-equal to the
+    unsharded call's output on them; (c) ``hisfrag --cfg
+    configs/scale/hisfrag20_pjsL_moe_hybrid.yaml --opts TPU.MESH_SHAPE
+    [1, 2, 2] TPU.SEQ_PARALLEL False`` on 4 ranks at 2 + 2 blocks, the aux
+    terms equal on every rank; (d) one rank with the default backend, TP,
+    EP and FSDP on over ``[1, 1, 1]`` with every rule's split kept over
+    groups of one rank: every collective path over NCCL, the update against
+    the plain one.
+
+The order: phases 1-15; then, alone on the card, the phases that time
+kernels or steps: 16a-c, 17a-c and 17e, 18a-b and 21's full-depth updates;
+then phases 22-24, 16d and 21's entry, upcycling and export in one child
+process (``python chip_smoke.py --late-phases <tmp>``)
+beside 20 (its children (e) and (f) running on), 16e-f, 17d, 18c-f and 19
+(19b's scan beside 19c; 19d's and 20's times are taken beside the child);
+the child's output is printed after phase 19, then 20(e)-(f) are read.
+Every ``== phase`` header is preceded by the wall and CPU seconds of the
+sub-phase that ends there.
 
 ``chip_ab.py`` times phases 3, 7 and 11, phase 4's scan chunk and phase 9's
 device step of two trees in turns on one card.
@@ -273,6 +310,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -356,6 +394,36 @@ PUZZLE_STEP_SHAPES = {(f"heads_{name}{kernel}", n_q, n_k): n
                                                 ("qkv_cls", 1, 65, 1), ("kv", 65, 64, 7),
                                                 ("kv", 1, 64, 1))
                       for kernel in ("", "_dq", "_dkv")}
+
+
+_SUB = {"label": None, "t": None, "cpu": None, "start": None, "origin": "the start"}
+
+
+def _cpu_seconds():
+    t = os.times()
+    return t.user + t.system + t.children_user + t.children_system
+
+
+def header(text, **kw):
+    """Print a phase's header line. In the main process, first the wall and
+    CPU seconds (this process and its waited-for children) of the
+    sub-phase that ends here, and the seconds since the start."""
+    if _SUB["start"] is not None:
+        sub_done()
+        _SUB["label"] = re.split(r"[:,(]", text[len("== phase "):], maxsplit=1)[0].strip()
+        _SUB["t"], _SUB["cpu"] = time.time(), _cpu_seconds()
+    print(text, **kw)
+
+
+def sub_done():
+    """Print the seconds of the sub-phase in progress (see ``header``)."""
+    if _SUB["label"] is None:
+        return
+    now, cpu = time.time(), _cpu_seconds()
+    print(f"  [sub-phase {_SUB['label']}: {now - _SUB['t']:.1f}s wall, "
+          f"{cpu - _SUB['cpu']:.1f}s CPU; {now - _SUB['start']:.1f}s since "
+          f"{_SUB['origin']}]", flush=True)
+    _SUB["label"] = None
 
 
 def card_line():
@@ -474,7 +542,7 @@ def cases(gen, dtype, b, s, sk, probe=False):
 
 
 def phase_kernels_vs_plain(gen):
-    print("== phase 2: kernel against plain (B=8, C=384, H=6; the last key of every "
+    header("== phase 2: kernel against plain (B=8, C=384, H=6; the last key of every "
           "(batch, head) dominant)", flush=True)
     err = {name: 0.0 for name in REPLACES}
     for dtype in (torch.float32, torch.bfloat16):
@@ -561,7 +629,7 @@ def bound(name, b, s, sk):
 
 
 def phase_times(gen):
-    print("== phase 3: kernel times at the main path's shapes (B=64, bf16)",
+    header("== phase 3: kernel times at the main path's shapes (B=64, bf16)",
           flush=True)
     b, s, sk = 64, 1025, 1024
     cs = cases(gen, torch.bfloat16, b, s, sk)
@@ -583,7 +651,7 @@ def phase_times(gen):
 
 
 def phase_model(gen):
-    print("== phase 4: pjs-S patch16_512, full width and depth, seed 0",
+    header("== phase 4: pjs-S patch16_512, full width and depth, seed 0",
           flush=True)
 
     class Args:
@@ -727,7 +795,7 @@ def scan_vs_direct(data, dm, pairs, opts=None):
 def phase_main_path(tmp):
     from vit_ed_tpu_torch.hisfrag import main
 
-    print("== phase 5: main path, python -m vit_ed_tpu_torch.hisfrag --mode test",
+    header("== phase 5: main path, python -m vit_ed_tpu_torch.hisfrag --mode test",
           flush=True)
     data = os.path.join(tmp, "data")
     n = write_corpus(data)
@@ -811,7 +879,7 @@ def plain_grads(name, t, do):
 
 
 def phase_backward_vs_plain(gen):
-    print("== phase 6: backward kernel against plain (B=8, C=384, H=6); "
+    header("== phase 6: backward kernel against plain (B=8, C=384, H=6); "
           "design: two launches, fixed summation order, no atomics", flush=True)
     err = {name: 0.0 for name in VJP_WRAPPERS}
     for dtype in (torch.float32, torch.bfloat16):
@@ -921,7 +989,7 @@ def backward_rows(name, t, b, s, sk, note):
 
 
 def phase_backward_times(gen):
-    print(f"== phase 7: backward kernel times at the training shapes "
+    header(f"== phase 7: backward kernel times at the training shapes "
           f"(B={TRAIN_PAIRS} pairs, bf16)", flush=True)
     b, s, sk = TRAIN_PAIRS, 1025, 1024
     t = vjp_inputs(gen, torch.bfloat16, b, s, sk)
@@ -958,7 +1026,7 @@ def train_argv(data, out, tag, *extra):
 def phase_gradients(tmp):
     from vit_ed_tpu_torch.hisfrag import HisfragTrainer, parse_option
 
-    print("== phase 8: one full-width f32 loss + backward, card against CPU "
+    header("== phase 8: one full-width f32 loss + backward, card against CPU "
           "(3 images, their mined pairs, depth 12 + 12, drop path 0)", flush=True)
     rng = np.random.default_rng(1)
     samples = rng.normal(size=(3, 512, 512, 3)).astype(np.float32)
@@ -1010,7 +1078,7 @@ def phase_train_path(tmp):
     from vit_ed_tpu_torch.models.build import build_model as build
     from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
 
-    print(f"== phase 9: training main path, python -m vit_ed_tpu_torch.hisfrag "
+    header(f"== phase 9: training main path, python -m vit_ed_tpu_torch.hisfrag "
           f"--mode train (bf16, drop path 0.1, {TRAIN_BATCH} images -> "
           f"{TRAIN_PAIRS} pairs per step)", flush=True)
     data = os.path.join(tmp, "train_data")
@@ -1255,7 +1323,7 @@ def phase_native(tmp):
     from vit_ed_tpu_torch.hisfrag import HisfragTrainer
     from vit_ed_tpu_torch.native import pipeline as P
 
-    print("== phase 14: the native input pipeline (vit_ed_tpu_torch/native/pipeline.cc)",
+    header("== phase 14: the native input pipeline (vit_ed_tpu_torch/native/pipeline.cc)",
           flush=True)
     t0 = time.time()
     P.decode_route()
@@ -1436,7 +1504,7 @@ def check_heads_layout(layout, t, dtype, tag, err, h=HH):
 
 
 def phase_heads_vs_plain(gen):
-    print(f"== phase 10: 4-D kernels against plain (H={HH}, d={HD}: forward, dq, "
+    header(f"== phase 10: 4-D kernels against plain (H={HH}, d={HD}: forward, dq, "
           f"dk/dv through every route at the puzzle path's shapes, B={PUZZLE_BATCH}, "
           f"S=65 and the encoder's S=64, and at B=8, S=1025; then d=16, 64, 128)",
           flush=True)
@@ -1563,7 +1631,7 @@ def heads_layout_times(gen, layout, b, s, sk, backward):
 
 
 def phase_heads_times(gen):
-    print(f"== phase 11: 4-D kernel times (bf16, H=12, d=32): the puzzle path's "
+    header(f"== phase 11: 4-D kernel times (bf16, H=12, d=32): the puzzle path's "
           f"shapes B={PUZZLE_BATCH} S=65 (decoder), S=64 (encoder) and Sq=1 (the last "
           f"block's cross-attention), B=64 S=1025, "
           f"and the head_dim 32 scan's chunk B={SCAN32_IMAGES} S=1025", flush=True)
@@ -1585,7 +1653,7 @@ def puzzle_argv(data, out, tag, mode, *extra):
 def phase_puzzle_model(tmp):
     from vit_ed_tpu_torch.main import DefaultTrainer, parse_option
 
-    print("== phase 12: pjs patch8_64 (embed 384, 12 heads x 32, depth 8 + 8, 4 "
+    header("== phase 12: pjs patch8_64 (embed 384, 12 heads x 32, depth 8 + 8, 4 "
           "classes), full width and depth, seed 0: card against CPU", flush=True)
     rng = np.random.default_rng(2)
     samples = rng.normal(size=(16, 2, 64, 64, 3)).astype(np.float32)
@@ -1657,7 +1725,7 @@ def phase_puzzle_path(tmp):
     from vit_ed_tpu_torch.models.build import build_model as build
     from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
 
-    print(f"== phase 13: DIV2K main path, python -m vit_ed_tpu_torch.main --mode "
+    header(f"== phase 13: DIV2K main path, python -m vit_ed_tpu_torch.main --mode "
           f"train (bf16, drop path 0.1, {PUZZLE_BATCH} pairs per step, depth 8 + 8)",
           flush=True)
     data = os.path.join(tmp, "div2k")
@@ -2073,7 +2141,7 @@ def phase_puzzle_eval(tmp, ckpt_path, gen):
     150-piece puzzles, with the checkpoint of phase 13."""
     from vit_ed_tpu_torch import evaluation
 
-    print(f"== phase 15: puzzle evaluation, python -m vit_ed_tpu_torch.evaluation "
+    header(f"== phase 15: puzzle evaluation, python -m vit_ed_tpu_torch.evaluation "
           f"(pjs patch8_64, bf16, batch {PUZZLE_BATCH}) on {len(EVAL_FILES)} synthetic "
           f"{EVAL_W} x {EVAL_H} puzzles of {EVAL_PIECES} pieces in each of "
           f"{', '.join(EVAL_SUBSETS)}", flush=True)
@@ -2368,7 +2436,7 @@ def phase_michigan_train(tmp, data):
     from vit_ed_tpu_torch import michigan
 
     card = card_line()
-    print(f"== phase 16c: python -m vit_ed_tpu_torch.michigan --mode train (pjs-S "
+    header(f"== phase 16c: python -m vit_ed_tpu_torch.michigan --mode train (pjs-S "
           f"patch16_384, bf16, drop path 0.1, batch {M_BATCH} -> <= {M_PAIRS} pairs)",
           flush=True)
     steps = []
@@ -2436,7 +2504,7 @@ def phase_michigan_preempt(tmp, data, n_steps):
     from vit_ed_tpu_torch import michigan
     from vit_ed_tpu_torch.train.checkpoint import load_checkpoint
 
-    print("== phase 16d: preemption: SIGTERM to python -m vit_ed_tpu_torch.michigan "
+    header("== phase 16d: preemption: SIGTERM to python -m vit_ed_tpu_torch.michigan "
           "--mode train after its first Train: line, then a rerun (full width)",
           flush=True)
     argv = michigan_argv(data, os.path.join(tmp, "out"), "preempt", "train",
@@ -2500,7 +2568,7 @@ def phase_michigan_eval(tmp, data):
     from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
 
     card = card_line()
-    print("== phase 16e: python -m vit_ed_tpu_torch.michigan --mode eval (the val "
+    header("== phase 16e: python -m vit_ed_tpu_torch.michigan --mode eval (the val "
           "scan) and --mode throughput", flush=True)
     seen = []
     inner = PairwiseScorer.score_dataset
@@ -2573,7 +2641,7 @@ def phase_geshaem(tmp, data, gesh):
     from vit_ed_tpu_torch.native.pipeline import PipelinePool
 
     card = card_line()
-    print("== phase 16f: python -m vit_ed_tpu_torch.michigan --mode test "
+    header("== phase 16f: python -m vit_ed_tpu_torch.michigan --mode test "
           "(geshaem_test) and python -m vit_ed_tpu_torch.geshame_evaluation", flush=True)
     out = os.path.join(tmp, "out")
     pooled, timing = [], {}
@@ -2654,7 +2722,10 @@ def phase_geshaem(tmp, data, gesh):
 
 
 def phase_michigan(tmp, gen):
-    """Phase 16: the Michigan / Geshaem slice at pjs-S patch16_384."""
+    """Phase 16: the Michigan / Geshaem slice at pjs-S patch16_384: 16a-c
+    (kernel times and timed steps) now; returns ``finish``, which runs 16e-f
+    and returns the kernels' rows, and 16d's arguments (the train data, the
+    updates of an uninterrupted epoch): 16d runs in phases 22-24's child."""
     t0 = time.time()
     train_data = os.path.join(tmp, "michigan_train")
     eval_data = os.path.join(tmp, "michigan")
@@ -2662,23 +2733,31 @@ def phase_michigan(tmp, gen):
     n_train = write_michigan(train_data, 8, seed=1)
     n_eval = write_michigan(eval_data, 80, seed=2)
     n_gesh = write_geshaem(gesh)
-    print(f"== phase 16: Michigan / Geshaem (configs/michigan/michigan_patch16_384.yaml): "
+    header(f"== phase 16: Michigan / Geshaem (configs/michigan/michigan_patch16_384.yaml): "
           f"synthetic trees of {n_train} and {n_eval} Michigan JPEGs (~700 x 900 px) and "
           f"{n_gesh} Geshaem JPEGs (~500 x 600 px) in {time.time() - t0:.1f}s", flush=True)
-    print(f"== phase 16a: pair kernels against plain at pjs-S patch16_384's length "
+    header(f"== phase 16a: pair kernels against plain at pjs-S patch16_384's length "
           f"(C=384, H=6, S={M_S}, Sk={M_SK}; B={M_PAIRS} and 64; the encoder's S={M_SK} "
           f"at B={M_BATCH}) on {card_line()}", flush=True)
     err = {}
     for (_tag, name), e in hold_pair_kernels(gen, M_KERNEL_SETS, "16a").items():
         err[name] = max(err.get(name, 0.0), e)
-    print(f"== phase 16b: pair kernel times at S={M_S} (bf16) on {card_line()}", flush=True)
+    header(f"== phase 16b: pair kernel times at S={M_S} (bf16) on {card_line()}", flush=True)
     times = {f"{name}@{tag}": r for (tag, name), r in
              time_pair_kernels(gen, M_KERNEL_SETS, "16b").items()}
     train_shapes, n_steps = phase_michigan_train(tmp, train_data)
-    phase_michigan_preempt(tmp, train_data, n_steps)
+    print(f"  phase 16a-c took {time.time() - t0:.1f}s", flush=True)
+    finish = lambda: michigan_finish(tmp, eval_data, gesh, train_shapes, err,  # noqa: E731
+                                     times)
+    return finish, (train_data, n_steps)
+
+
+def michigan_finish(tmp, eval_data, gesh, train_shapes, err, times):
+    """Phase 16e-f, then the kernels' rows of phase 16."""
+    t0 = time.time()
     scan_shapes = phase_michigan_eval(tmp, eval_data)
     phase_geshaem(tmp, eval_data, gesh)
-    print(f"  phase 16 took {time.time() - t0:.1f}s", flush=True)
+    print(f"  phase 16e-f took {time.time() - t0:.1f}s", flush=True)
 
     # one row per kernel and shape: ``launches`` from --mode train (the
     # scan's kv_shared from --mode eval), times at the training pair buffer
@@ -2746,7 +2825,7 @@ def phase_vit_model(tmp):
     bf16 card against f32 card."""
     from vit_ed_tpu_torch.main_vit import VitTripletTrainer, parse_option
 
-    print(f"== phase 17a: the ViT of {os.path.relpath(VIT_CFG, ROOT)} (embed 384, 12 "
+    header(f"== phase 17a: the ViT of {os.path.relpath(VIT_CFG, ROOT)} (embed 384, 12 "
           f"blocks, 12 heads x 32, patch 8 at 64 px: S = 65), seed 0: card against "
           f"CPU on {card_line()}", flush=True)
     rng = np.random.default_rng(3)
@@ -2807,7 +2886,7 @@ def phase_vit_kernels(gen):
     """Phase 17b: the 4-D qkv kernels at main_vit's batches (B = 1,536 in
     training, 1,024 in testing; S = 65, 12 heads of 32) against plain, then
     timed; a batch over the grid's limit raises."""
-    print(f"== phase 17b: 4-D qkv kernels at main_vit's batches (S=65, H={HH}, d={HD}): "
+    header(f"== phase 17b: 4-D qkv kernels at main_vit's batches (S=65, H={HH}, d={HD}): "
           f"B={VIT_IMAGES} forward, dq, dkv and B={VIT_TEST_IMAGES} forward against plain "
           f"(last key dominant, outputs filled with NaN), then timed, on {card_line()}",
           flush=True)
@@ -2872,7 +2951,7 @@ def phase_vit_train(tmp):
     from vit_ed_tpu_torch import main_vit
 
     card = card_line()
-    print(f"== phase 17c: python -m vit_ed_tpu_torch.main_vit --mode train (bf16, drop "
+    header(f"== phase 17c: python -m vit_ed_tpu_torch.main_vit --mode train (bf16, drop "
           f"path 0.1, {VIT_BATCH} items x 12 images = {VIT_IMAGES} sequences per step)",
           flush=True)
     data, out = os.path.join(tmp, "div2k"), os.path.join(tmp, "out")
@@ -2988,7 +3067,7 @@ def phase_vit_test(tmp, ckpt_path):
     from vit_ed_tpu_torch.data.transforms import TwoImgSyncEval
 
     n_pairs = VIT_PIECES * (VIT_PIECES - 1)
-    print(f"== phase 17d: python -m vit_ed_tpu_torch.main_vit --mode test (bf16) on one "
+    header(f"== phase 17d: python -m vit_ed_tpu_torch.main_vit --mode test (bf16) on one "
           f"{VIT_PUZZLE_PX} x {VIT_PUZZLE_PX} px puzzle per subset: {VIT_PIECES} pieces, "
           f"{n_pairs} ordered pairs, {8 * n_pairs} embeddings each", flush=True)
     card = card_line()
@@ -3060,7 +3139,7 @@ def phase_vit_pair_kernels(gen):
     """Phase 17e, first: the pair qkv forward and its backward at
     hisfrag_vit's shape (B = 16 images, S = 1025, 6 heads of 64) against
     plain, then timed."""
-    print(f"== phase 17e: hisfrag_vit (ViT-S/16 at 512 px: S=1025, {H} heads of {D}, the "
+    header(f"== phase 17e: hisfrag_vit (ViT-S/16 at 512 px: S=1025, {H} heads of {D}, the "
           f"pair route); the pair qkv kernels at B={HFV_BATCH} against plain, then timed, on "
           f"{card_line()}", flush=True)
     err = {"fwd": 0.0, "bwd": 0.0}
@@ -3213,15 +3292,24 @@ def phase_hisfrag_vit(tmp):
 
 
 def phase_vit(tmp, gen):
-    """Phase 17: the ViT embedding baselines. Returns the kernels' rows."""
+    """Phase 17: the ViT embedding baselines: 17a-c and 17e now; returns
+    ``finish``, which runs 17d (main_vit's testing) and returns the kernels'
+    rows."""
     t0 = time.time()
     phase_vit_model(tmp)
     heads_err, heads_times = phase_vit_kernels(gen)
     train_shapes, ckpt_path = phase_vit_train(tmp)
-    test_shapes = phase_vit_test(tmp, ckpt_path)
     pair_err, pair_times = phase_vit_pair_kernels(gen)
     hfv_shapes = phase_hisfrag_vit(tmp)
-    print(f"  phase 17 took {time.time() - t0:.1f}s", flush=True)
+    print(f"  phase 17 but 17d took {time.time() - t0:.1f}s", flush=True)
+    return lambda: vit_finish(tmp, ckpt_path, train_shapes, hfv_shapes, heads_err,
+                              heads_times, pair_err, pair_times)
+
+
+def vit_finish(tmp, ckpt_path, train_shapes, hfv_shapes, heads_err, heads_times, pair_err,
+               pair_times):
+    """Phase 17d, then the kernels' rows of phase 17."""
+    test_shapes = phase_vit_test(tmp, ckpt_path)
 
     # one row per kernel and shape: ``launches`` of main_vit --mode train (the
     # testing forward's of --mode test) and hisfrag_vit --mode train, each at
@@ -3344,7 +3432,7 @@ def phase_pajigsaw_entry(tmp, data):
     from vit_ed_tpu_torch.parallel.pairs import PairwiseScorer
 
     card = card_line()
-    print(f"== phase 18b: python -m vit_ed_tpu_torch.pajigsaw --mode train (pjs-S "
+    header(f"== phase 18b: python -m vit_ed_tpu_torch.pajigsaw --mode train (pjs-S "
           f"patch16_512, bf16, drop path 0.1, {PJS_BATCH} stacked pairs per update, "
           f"{PJS_TRAIN_IMAGES} images x {PJS_CHUNK} fragments of 512 px)", flush=True)
     out = os.path.join(tmp, "out")
@@ -3536,7 +3624,7 @@ def phase_bn_models(tmp):
     from vit_ed_tpu_torch.train.losses import negative_cosine_similarity
 
     card = card_line()
-    print(f"== phase 18c: the BatchNorm baselines at 512 px (resnet34, mixconv on "
+    header(f"== phase 18c: the BatchNorm baselines at 512 px (resnet34, mixconv on "
           f"resnet18 with 4 MetaFormer blocks of 512, SimSiam ss / ss2 / ss2ce on "
           f"resnet34 with 2048 / 512) on {card}", flush=True)
     out = os.path.join(tmp, "out")
@@ -3742,7 +3830,7 @@ def phase_lr_finder(tmp):
     DIV2K at patch8_64, B = 128, 30 iterations, launch counts of its own."""
     from vit_ed_tpu_torch import lr_finder
 
-    print(f"== phase 18d: python -m vit_ed_tpu_torch.lr_finder (pjs patch8_64, bf16, "
+    header(f"== phase 18d: python -m vit_ed_tpu_torch.lr_finder (pjs patch8_64, bf16, "
           f"B={PUZZLE_BATCH}, 30 iterations)", flush=True)
     A.reset_launch_counts()
     t0 = time.time()
@@ -3783,7 +3871,7 @@ def phase_solver_driver(tmp):
     random.seed(0)
     t0 = time.time()
     records = solver_driver.main(["--images", images, "--output", out])
-    print(f"== phase 18e: python -m vit_ed_tpu_torch.solver_driver: {len(records)} images "
+    header(f"== phase 18e: python -m vit_ed_tpu_torch.solver_driver: {len(records)} images "
           f"in {time.time() - t0:.2f}s: " + "; ".join(
               f"{os.path.basename(r['image'])} {len(r['puzzle'].pieces)} pieces "
               f"{ {k: round(v[0], 4) for k, v in r['result'].items()} } perfect {r['perfect']}"
@@ -3832,7 +3920,7 @@ def phase_options(tmp):
         drop.train().seed_drop_path(5)
         plain.train().seed_drop_path(5)
         dropped = not torch.equal(drop(xs), plain(xs))
-    print(f"== phase 18f: TPU.FAST_GELU pjs patch8_64 f32 card against CPU {fast:.3e} of the "
+    header(f"== phase 18f: TPU.FAST_GELU pjs patch8_64 f32 card against CPU {fast:.3e} of the "
           f"max (tol 1e-3); MODEL.DROP_RATE 0.1: a train step twice from one generator seed "
           f"equal bit for bit {same}, eval equal to DROP_RATE 0 {untouched}, training "
           f"differs from DROP_RATE 0 {dropped}", flush=True)
@@ -3841,9 +3929,11 @@ def phase_options(tmp):
 
 
 def phase_pajigsaw(tmp, gen):
-    """Phase 18. Returns the kernels' rows and lr_finder's launches."""
+    """Phase 18: 18a-b (kernel times and timed steps) now; returns
+    ``finish``, which runs 18c-f and returns the kernels' rows and
+    lr_finder's launches."""
     t0 = time.time()
-    print(f"== phase 18a: pair kernels against plain at the Pajigsaw shapes (C=384, H=6; "
+    header(f"== phase 18a: pair kernels against plain at the Pajigsaw shapes (C=384, H=6; "
           f"train B={PJS_BATCH} at S=1025 and the encoder's 1024; score_dense's chunk "
           f"B={PJS_CHUNK}) on {card_line()}", flush=True)
     err = hold_pair_kernels(gen, PJS_KERNEL_SETS, "18a")
@@ -3854,11 +3944,19 @@ def phase_pajigsaw(tmp, gen):
     n += write_pajigsaw(data, "val", 2, seed=1) + write_pajigsaw(data, "test", 2, seed=2)
     print(f"  wrote {n} fragments of 512 px in {time.time() - t1:.1f}s", flush=True)
     train_shapes, eval_shapes_run = phase_pajigsaw_entry(tmp, data)
+    print(f"  phase 18a-b took {time.time() - t0:.1f}s", flush=True)
+    return lambda: pajigsaw_finish(tmp, train_shapes, eval_shapes_run, err, times)
+
+
+def pajigsaw_finish(tmp, train_shapes, eval_shapes_run, err, times):
+    """Phase 18c-f, then the kernels' rows of phase 18 and lr_finder's
+    launches."""
+    t0 = time.time()
     phase_bn_models(tmp)
     lrf_shapes = phase_lr_finder(tmp)
     phase_solver_driver(tmp)
     phase_options(tmp)
-    print(f"  phase 18 took {time.time() - t0:.1f}s", flush=True)
+    print(f"  phase 18c-f took {time.time() - t0:.1f}s", flush=True)
 
     rows = []
     for tag, name, n_q, n_k, suffix in (("train", "qkv", 1025, 1025, ""),
@@ -3984,7 +4082,7 @@ def phase_sharded(tmp, scan5):
 
     card = card_line()
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
-    print("== phase 19a: python -m vit_ed_tpu_torch.hisfrag --mode test --opts "
+    header("== phase 19a: python -m vit_ed_tpu_torch.hisfrag --mode test --opts "
           "TPU.SHARDED_EVAL_METRICS True TPU.EVAL_SLAB_ON_DISK True, phase 5's corpus",
           flush=True)
     A.reset_launch_counts()
@@ -4013,13 +4111,21 @@ def phase_sharded(tmp, scan5):
         raise AssertionError(f"the sharded scan did not launch every pair kernel: {counts}")
     del rows
 
-    print("== phase 19b: the scan at N = 256, slab on disk, in a subprocess of the entry",
-          flush=True)
+    # 19b's scan runs in its subprocess beside 19c and is read after it
     d256 = os.path.join(tmp, "data256")
     t0 = time.time()
     n256 = write_corpus(d256, writers=64, seed=7)
     wrote = time.time() - t0
-    rc, res, log, secs = scan_child(hisfrag_test_argv(d256, out, "n256", *SHARDED_OPTS))
+    b256 = {}
+    b_thread = threading.Thread(target=lambda: b256.update(zip(
+        ("rc", "res", "log", "secs"),
+        scan_child(hisfrag_test_argv(d256, out, "n256", *SHARDED_OPTS)))), daemon=True)
+    b_thread.start()
+    phase_killed_scan(card, tmp, out, d256, main)
+    b_thread.join()
+    rc, res, log, secs = (b256[k] for k in ("rc", "res", "log", "secs"))
+    header("== phase 19b: the scan at N = 256, slab on disk, in a subprocess of the entry "
+           "(run beside 19c)", flush=True)
     if rc != 0 or res is None:
         print(log[-3000:])
         raise AssertionError(f"the N = {n256} scan failed (exit {rc})")
@@ -4037,8 +4143,14 @@ def phase_sharded(tmp, scan5):
             0.0 <= m <= 1.0 for m in res["metrics"]):
         raise AssertionError("the N = 256 scan did not cover its pairs")
 
-    print("== phase 19c: SIGKILL the scan at N = 128 after two row blocks of 16, resume, "
-          "and an uninterrupted scan", flush=True)
+
+def phase_killed_scan(card, tmp, out, d256, main):
+    """19c: the scan at N = 128 (the first 32 writers of 19b's corpus)
+    killed after two row blocks, resumed, and an uninterrupted one."""
+    import glob
+
+    header("== phase 19c: SIGKILL the scan at N = 128 after two row blocks of 16, resume, "
+          "and an uninterrupted scan (beside 19b's)", flush=True)
     # the first 32 writers of 19b's corpus
     d128 = os.path.join(tmp, "data128")
     os.makedirs(os.path.join(d128, "test"))
@@ -4087,8 +4199,9 @@ def phase_int8_gemm(gen):
     from vit_ed_tpu_torch.models.layers import Linear
 
     card = card_line()
-    print(f"== phase 19d: the int8 GEMM (ops/quant.py, torch._int_mm) at a 64-pair "
-          f"chunk's shapes, card against CPU, on {card}", flush=True)
+    header(f"== phase 19d: the int8 GEMM (ops/quant.py, torch._int_mm) at a 64-pair "
+          f"chunk's shapes, card against CPU, on {card}; timed beside phases 22-24's "
+          f"child (a shared card: not comparable with runs that timed it alone)", flush=True)
     rows = []
     for m, k, n in INT8_SHAPES:
         same = []
@@ -4162,7 +4275,7 @@ def phase_int8_scan(tmp, scan5):
 
     card = card_line()
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
-    print("== phase 19e: python -m vit_ed_tpu_torch.hisfrag --mode test --opts "
+    header("== phase 19e: python -m vit_ed_tpu_torch.hisfrag --mode test --opts "
           "TPU.INT8_SCORE True, phase 5's corpus", flush=True)
     A.reset_launch_counts()
     Q.reset_launch_counts()
@@ -4192,7 +4305,7 @@ def phase_int8_eval(tmp, ckpt_path, eval15):
 
     from vit_ed_tpu_torch import evaluation
 
-    print("== phase 19f: python -m vit_ed_tpu_torch.evaluation --opts TPU.INT8_SCORE True "
+    header("== phase 19f: python -m vit_ed_tpu_torch.evaluation --opts TPU.INT8_SCORE True "
           f"on phase 15's {EVAL_SUBSETS[0]}/{EVAL_FILES[0]}", flush=True)
     data, work = os.path.join(tmp, "puzzles_int8"), os.path.join(tmp, "eval_int8_cwd")
     os.makedirs(os.path.join(data, EVAL_SUBSETS[0]))
@@ -4231,7 +4344,7 @@ def phase_explain(tmp):
     and a keep_attn forward against the fused one."""
     from vit_ed_tpu_torch.ops.explain import generate_relevance
 
-    print("== phase 19g: ops/explain.py generate_relevance at pjs-S patch16_512 (one pair, "
+    header("== phase 19g: ops/explain.py generate_relevance at pjs-S patch16_512 (one pair, "
           "f32), card against CPU; keep_attn against the fused forward", flush=True)
     config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=None))
     torch.manual_seed(config.SEED)
@@ -4409,13 +4522,15 @@ def serve_load(url, stage, xs, threads=SERVE_THREADS, n=SERVE_REQUESTS):
     return np.asarray(lat), wall, pairs, first
 
 
-def phase_serve(tmp, scan5, gen):
+def phase_serve(tmp, scan5, gen, export_b):
     """Phase 20. The serving tier at pjs-S patch16_512 bf16, weights from a
     seed."""
     from vit_ed_tpu_torch.serve import BundleServer, export_scorer, load_scorer, scan_pairs
 
-    print("== phase 20: the serving tier (vit_ed_tpu_torch.serve) at pjs-S "
-          "patch16_512, bf16, weights from seed 0", flush=True)
+    header("== phase 20: the serving tier (vit_ed_tpu_torch.serve) at pjs-S "
+          "patch16_512, bf16, weights from seed 0; its times and rates are taken beside "
+          "phases 22-24's child (a shared card: not comparable with runs that took them "
+          "alone)", flush=True)
     t_phase = time.time()
     res = {"dispatch_us": dispatch_cost(gen)}
     config = get_config(types.SimpleNamespace(cfg=FLAGSHIP_CFG, opts=None))
@@ -4507,9 +4622,10 @@ def phase_serve(tmp, scan5, gen):
 
     # (e) a bucketed bundle through the export entry, verified on the card,
     # and (f) the host's own entry on (a)'s bundle, each in a child process
-    # started here: they run on beside phases 21 and 22, and main() reads
-    # them after those (serve_children_finish), with the live model kept
-    res["export_b"] = export_bucketed_start(tmp)
+    # started here: they run on beside the rest of phase 20 and phases
+    # 22-24, and main() reads them after those (serve_children_finish), with
+    # the live model kept
+    res["export_b"] = export_b          # 20(e)'s child, started by main()
     res["cli_child"] = serve_cli_start(out)
     res["cli_args"] = (model, xs[1])
     del model
@@ -4522,7 +4638,7 @@ _BACKGROUND = []          # children that outlive their phase; main() stops them
 
 
 def serve_children_finish(serve):
-    """Phase 20's (e) and (f), read after phases 21 and 22: the bucketed
+    """Phase 20's (e) and (f), read after phases 22-24: the bucketed
     export's holds, then the host's ``/v1/score`` against the live model,
     which is freed after."""
     export_bucketed_finish(serve.pop("export_b"))
@@ -4567,8 +4683,8 @@ def serve_cli_check(proc, t0, model, x):
         want = model(torch.from_numpy(x).cuda()).float().cpu().numpy()
     gap = float(np.abs(got - want).max())
     print(f"  (f) python -m vit_ed_tpu_torch.serve --bundle <(a)'s bundle>: serving "
-          f"within {up:.1f}s of its start (it started with (e) and ran beside phases "
-          f"21 and 22); /v1/score of "
+          f"within {up:.1f}s of its start (it started in phase 20 and ran beside the "
+          f"phases after it); /v1/score of "
           f"{len(x)} pairs against the live model max |diff| {gap:.3e} (tol 2e-3)",
           flush=True)
     if gap > 2e-3:
@@ -4609,7 +4725,7 @@ def export_bucketed_finish(child, timeout=600):
         meta_b = json.load(f)
     verified = [line.split("INFO ", 1)[-1].strip() for line in said.splitlines()
                 if "verify" in line]
-    print(f"== phase 20(e), run beside phases 21 and 22: python -m "
+    header(f"== phase 20(e), run beside phases 16e-20 and 22-24 (read after them): python -m "
           f"vit_ed_tpu_torch.export_serving --batch-sizes 8,64 --verify in a child process: "
           f"{sum(len(v) for v in meta_b['stages'].values())} artifacts (buckets "
           f"{meta_b['batch_mode']}), exit {rc} {time.time() - t0:.1f}s after its start; "
@@ -4781,8 +4897,8 @@ def phase_moe_entry(tmp):
 
 
 def phase_moe(tmp):
-    """Phase 21."""
-    print(f"== phase 21: MoE on one card, the pjs-L MoE configuration "
+    """Phase 21's full-depth updates (timed: alone on the card)."""
+    header(f"== phase 21: MoE on one card, the pjs-L MoE configuration "
           f"({os.path.relpath(MOE_CFG, ROOT)}) without its mesh, bf16, "
           f"{MOE_BATCH} images per update", flush=True)
     t0 = time.time()
@@ -4791,16 +4907,9 @@ def phase_moe(tmp):
     print(f"  device memory held by earlier phases: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     res = phase_moe_full(tmp)
-    phase_moe_entry(tmp)
-    print(f"  phase 21 took {time.time() - t0:.1f}s", flush=True)
+    print(f"  phase 21's timed updates took {time.time() - t0:.1f}s (its entry, upcycling "
+          f"and export run in the child of phases 22-24)", flush=True)
     return res
-
-
-def phase_slice12(tmp, gen, scan5):
-    """Phases 20 and 21."""
-    serve = phase_serve(tmp, scan5, gen)
-    moe = phase_moe(tmp)
-    return serve, moe
 
 
 # ---------------------------------------------------------------------------
@@ -4925,11 +5034,11 @@ def rank_child(spec_path):
 
 
 class MpRun:
-    """Two ranks of ``python chip_smoke.py --rank-child`` sharing the card
-    over gloo."""
+    """``world`` ranks (two by default) of ``python chip_smoke.py
+    --rank-child`` (or ``child``) sharing the card over gloo."""
 
     def __init__(self, tmp, name, entry, runs, kill_at_block=None, f32=None,
-                 child="--rank-child", spec=None, env=None):
+                 child="--rank-child", spec=None, env=None, world=2):
         import socket
 
         with socket.socket() as s:
@@ -4937,7 +5046,7 @@ class MpRun:
             port = s.getsockname()[1]
         self.name, self.procs, self.results, self.logs = name, [], [], []
         self.t0 = time.time()
-        for rank in range(2):
+        for rank in range(world):
             res = os.path.join(tmp, f"mp_{name}_rank{rank}.json")
             with open(res + ".spec", "w") as f:
                 json.dump({"entry": entry, "runs": runs, "result": res,
@@ -4945,7 +5054,7 @@ class MpRun:
             for old in (res, res + ".updates"):
                 if os.path.exists(old):
                     os.unlink(old)
-            child_env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(rank),
+            child_env = {**os.environ, "WORLD_SIZE": str(world), "RANK": str(rank),
                          "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
                          "MASTER_PORT": str(port), "PYTHONUNBUFFERED": "1", **(env or {})}
             log = os.path.join(tmp, f"mp_{name}_rank{rank}.log")
@@ -4970,8 +5079,8 @@ class MpRun:
             return None
 
     def finish(self, timeout=600):
-        """Both ranks' results; raises unless both exit 0."""
-        for rank in range(2):
+        """Every rank's results; raises unless every rank exits 0."""
+        for rank in range(len(self.procs)):
             rc = self.wait(rank, max(timeout - (time.time() - self.t0), 1))
             if rc != 0:
                 raise AssertionError(f"phase {self.name}: rank {rank} exit {rc}:\n"
@@ -5157,7 +5266,7 @@ def phase_multiprocess(tmp, scan5):
 
     card = card_line()
     t_phase = time.time()
-    print("== phase 22: two processes (WORLD_SIZE 2, LOCAL_RANK 0, gloo) on one card, "
+    header("== phase 22: two processes (WORLD_SIZE 2, LOCAL_RANK 0, gloo) on one card, "
           "full width, seed 0; then one NCCL rank. Two ranks that time-slice one card "
           "check correctness: their times are no speedup", flush=True)
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
@@ -5204,7 +5313,7 @@ def phase_multiprocess(tmp, scan5):
 
         re_ = e.finish()
         cue.join()
-        print(f"== phase 22e: SIGTERM to rank 1 only during a DIV2K epoch "
+        header(f"== phase 22e: SIGTERM to rank 1 only during a DIV2K epoch "
               f"({e.seconds:.1f}s)", flush=True)
         edir = os.path.join(out, "div2k_erosion7_4bin_patch8_64", "mp_e")
         tree = load_checkpoint(os.path.join(edir, "checkpoint.ckpt"))
@@ -5222,7 +5331,7 @@ def phase_multiprocess(tmp, scan5):
         e2 = MpRun(tmp, "22e_rerun", "main", e_run)
 
         ra = a.finish()
-        print(f"== phase 22a: python -m vit_ed_tpu_torch.hisfrag --mode test over 2 ranks, "
+        header(f"== phase 22a: python -m vit_ed_tpu_torch.hisfrag --mode test over 2 ranks, "
               f"N = {len(scan5['dm'])}, row blocks of 16 ({a.seconds:.1f}s for both runs)",
               flush=True)
         mp_scan_print(card, "assembled", ra, 0)
@@ -5254,7 +5363,7 @@ def phase_multiprocess(tmp, scan5):
             raise AssertionError("22a: the sharded metrics differ from phase 19a's")
 
         rc = c.finish()
-        print(f"== phase 22c: python -m vit_ed_tpu_torch.hisfrag --mode train over 2 ranks, "
+        header(f"== phase 22c: python -m vit_ed_tpu_torch.hisfrag --mode train over 2 ranks, "
               f"2 x {MP_HISFRAG_BATCH} images, bf16, DropPath 0.1 ({c.seconds:.1f}s)",
               flush=True)
         mp_train_check(card, "22c", rc, MP_PAIR_KERNELS)
@@ -5267,7 +5376,7 @@ def phase_multiprocess(tmp, scan5):
             raise AssertionError("22c: the two-rank update differs from one process's")
 
         rk = k2.finish()
-        print(f"== phase 22b: the killed scan rerun ({k2.seconds:.1f}s)", flush=True)
+        header(f"== phase 22b: the killed scan rerun ({k2.seconds:.1f}s)", flush=True)
         for r in rk:
             full = ra[r["rank"]]["runs"][1]["blocks"]
             redo = r["runs"][0]["blocks"]
@@ -5280,7 +5389,7 @@ def phase_multiprocess(tmp, scan5):
                 raise AssertionError("22b: the rerun rescored a finished block or differs")
 
         rd = d.finish()
-        print(f"== phase 22d: python -m vit_ed_tpu_torch.main --mode train over 2 ranks, "
+        header(f"== phase 22d: python -m vit_ed_tpu_torch.main --mode train over 2 ranks, "
               f"pjs patch8_64, 2 x {MP_DIV2K_BATCH} pairs, bf16, DropPath 0.1 "
               f"({d.seconds:.1f}s)", flush=True)
         mp_train_check(card, "22d", rd, MP_HEADS_KERNELS)
@@ -5306,7 +5415,7 @@ def phase_multiprocess(tmp, scan5):
     finally:
         mp_stop_all()
 
-    print("== phase 22f: one rank with the default backend (cpu:gloo,cuda:nccl)", flush=True)
+    header("== phase 22f: one rank with the default backend (cpu:gloo,cuda:nccl)", flush=True)
     phase_nccl_one_rank(tmp, ddata)
     print(f"  phase 22 took {time.time() - t_phase:.1f}s on {card}", flush=True)
 
@@ -5319,14 +5428,17 @@ CP_HFV_F32 = 4            # images per rank of 23a's f32 update
 CP_SS2_IMAGES = 4         # images per rank of 23b's float64 updates
 CP_MOE_IMAGES = 4         # images per rank of 23c's bf16 updates
 CP_MOE_F32 = 4            # images per rank of 23c's f32 update
-# 23c runs the pjs-L MoE configuration at its full depth, 24 + 24 blocks:
-# one update of 4 images per rank fits two ranks on the card (one rank of 8
-# peaked at 62.27 GiB in phase 21, which takes five; two updates at 20 + 20
-# peaked at 35.39 GiB per rank, one at 18 + 18 at 24.03: PERF.md). Its f32
+# 23c's bf16 update runs the pjs-L MoE configuration at 12 + 12 of its 24 +
+# 24 blocks (every width, the banks on every second encoder block): one
+# update of 4 images per rank at full depth peaked at 31.79 GiB per rank on
+# an NVIDIA H100 80GB HBM3 at 700 W, 6.11 GiB left free on the card, so
+# phase 23 could run beside no other phase; at 18 + 18 one rank peaked at
+# 24.03 GiB (PERF.md). Its f32
 # one-process check runs at MOE_SHORT's 2 + 2 blocks, every width and a
 # bank kept: a dump of the f32 parameters at full depth is 5.6 GB
 CP_SGD = ("TRAIN.AUTO_RESUME", "False", "TRAIN.WARMUP_EPOCHS", "0",
           "TRAIN.OPTIMIZER.NAME", "sgd")
+CP_MOE_DEPTH = ("MODEL.PJS.DEPTH", "12", "MODEL.PJS.C_DEPTH", "12")
 
 
 def cp_batch(rank, n, seed=0):
@@ -5559,7 +5671,7 @@ def phase_coupled_hfv(card, tmp, run, results, data, out):
     against one process on the concatenated batch."""
     from vit_ed_tpu_torch import hisfrag_vit
 
-    print(f"== phase 23a: python -m vit_ed_tpu_torch.hisfrag_vit --mode train over 2 ranks, "
+    header(f"== phase 23a: python -m vit_ed_tpu_torch.hisfrag_vit --mode train over 2 ranks, "
           f"ViT-S/16 at 512 px, 2 x {HFV_BATCH} images, bf16, DropPath 0.1", flush=True)
     cp_print_steps(card, "23a", results, "a")
     for r in results:
@@ -5596,7 +5708,7 @@ def phase_coupled_ss2(card, run, results, out):
 
     from vit_ed_tpu_torch.hisfrag_vit import parse_option
 
-    print(f"== phase 23b: ss2 (resnet34, 2048 / 512) at 512 px over 2 ranks, SyncBN, "
+    header(f"== phase 23b: ss2 (resnet34, 2048 / 512) at 512 px over 2 ranks, SyncBN, "
           f"2 x {CP_SS2_IMAGES} images, float64, SGD", flush=True)
     cp_print_steps(card, "23b", results, "b")
     print(f"  peak device memory per rank {[round(r['b']['peak_gib'], 2) for r in results]} "
@@ -5642,14 +5754,15 @@ def phase_coupled_moe(card, tmp, run, results, data, out):
     from vit_ed_tpu_torch import hisfrag
     from vit_ed_tpu_torch.models.moe import MoeMlp
 
-    pjs = get_config(types.SimpleNamespace(cfg=MOE_CFG, opts=list(MOE_ONE_CARD))).MODEL.PJS
+    pjs = get_config(types.SimpleNamespace(
+        cfg=MOE_CFG, opts=list(MOE_ONE_CARD + CP_MOE_DEPTH))).MODEL.PJS
     c0 = results[0]["c"]
-    print(f"== phase 23c: the pjs-L MoE configuration over 2 ranks (embed {pjs.EMBED_DIM}, "
-          f"{pjs.NUM_HEADS} heads, {pjs.DEPTH} + {pjs.C_DEPTH} blocks, {pjs.MOE.EXPERTS} "
-          f"experts top-{pjs.MOE.ROUTE_K}, jitter {pjs.MOE.JITTER}, interval "
-          f"{pjs.MOE.INTERVAL}; no cut: one update of {CP_MOE_IMAGES} images per rank fits "
-          f"two ranks on the card): {c0['params'] / 1e9:.3f} B parameters, {c0['banks']} "
-          f"banks, bf16, AdamW", flush=True)
+    header(f"== phase 23c: the pjs-L MoE configuration over 2 ranks (embed {pjs.EMBED_DIM}, "
+          f"{pjs.NUM_HEADS} heads, {pjs.DEPTH} + {pjs.C_DEPTH} of its 24 + 24 blocks, so that "
+          f"the phase runs beside others, {pjs.MOE.EXPERTS} experts top-{pjs.MOE.ROUTE_K}, "
+          f"jitter {pjs.MOE.JITTER}, interval {pjs.MOE.INTERVAL}; one update of "
+          f"{CP_MOE_IMAGES} images per rank): {c0['params'] / 1e9:.3f} B parameters, "
+          f"{c0['banks']} banks, bf16, AdamW", flush=True)
     cp_print_steps(card, "23c", results, "c")
     for r in results:
         c = r["c"]
@@ -5777,7 +5890,7 @@ def phase_coupled(tmp):
     gloo (one pair of children runs 23a-c in turn), then one NCCL rank."""
     card = card_line()
     t_phase = time.time()
-    print("== phase 23: the coupled batch on two ranks (WORLD_SIZE 2, LOCAL_RANK 0, gloo) "
+    header("== phase 23: the coupled batch on two ranks (WORLD_SIZE 2, LOCAL_RANK 0, gloo) "
           "on one card, full widths, seed 0: SyncBN, the MoE banks' global aux terms, "
           "hisfrag_vit's mining over the gathered batch. Two ranks that time-slice one "
           "card check correctness: their times are no speedup", flush=True)
@@ -5792,7 +5905,8 @@ def phase_coupled(tmp):
                                  "--batch-size", str(CP_HFV_F32), opts=CP_SGD),
         "ss2_argv": bn_argv("ss2", out, "cp_ss2", "none", "--disable_amp", "--batch-size",
                             str(CP_SS2_IMAGES)) + list(CP_SGD),
-        "moe_argv": moe_argv(data, out, "cp_moe", "--batch-size", str(CP_MOE_IMAGES)),
+        "moe_argv": moe_argv(data, out, "cp_moe", "--batch-size", str(CP_MOE_IMAGES),
+                             opts=CP_MOE_DEPTH),
         "moe_f32_argv": moe_argv(data, out, "cp_moe32", "--disable_amp", "--batch-size",
                                  str(CP_MOE_F32), opts=(*MOE_SHORT, *CP_SGD[2:])),
     }
@@ -5813,10 +5927,546 @@ def phase_coupled(tmp):
     phase_coupled_hfv(card, tmp, run, results, data, out)
     phase_coupled_ss2(card, run, results, out)
     phase_coupled_moe(card, tmp, run, results, data, out)
-    print("== phase 23d: one rank with the default backend (cpu:gloo,cuda:nccl) through "
+    header("== phase 23d: one rank with the default backend (cpu:gloo,cuda:nccl) through "
           "both collectives", flush=True)
     phase_nccl_coupled(tmp, data)
     print(f"  phase 23 took {time.time() - t_phase:.1f}s on {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# slice 15: the process mesh (phase 24), and the child that runs phases
+# 22-24 beside phases 16e-20
+# ---------------------------------------------------------------------------
+
+FSDP_CFG = os.path.join(ROOT, "configs", "scale", "div2k_pjsS_fsdp.yaml")
+TP_CFG = os.path.join(ROOT, "configs", "scale", "hisfrag20_pjsL_tp_sp.yaml")
+MESH_ONCE = ("TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0", "PRINT_FREQ", "1",
+             "TRAIN.AUTO_RESUME", "False")
+# 24b and 24c run pjs-L at 2 + 2 blocks, as 23c cut its f32 update (every
+# width kept: 1,024 wide, 16 heads of 64, 512 px)
+MESH_SHORT = MOE_SHORT
+# (world, entry, config, mesh and switch opts, depth opts, --batch-size of
+# the bf16 entry run, images or pairs of the global f32 batch)
+MESH_CASES = {
+    "24a": (2, "main", FSDP_CFG, ("TPU.MESH_SHAPE", "[2]"), (), MP_DIV2K_BATCH, 64),
+    "24b": (2, "hisfrag", TP_CFG, ("TPU.MESH_SHAPE", "[1, 2]", "TPU.SEQ_PARALLEL", "False"),
+            MESH_SHORT, 4, 4),
+    "24c": (4, "hisfrag", MOE_CFG, ("TPU.MESH_SHAPE", "[1, 2, 2]", "TPU.SEQ_PARALLEL",
+                                    "False"), MESH_SHORT, 2, 4),
+}
+
+
+def mesh_argv(case, tmp, tag, *extra, one_process=False, f32=False, mesh=None):
+    """The entry's argv of a phase-24 case; ``one_process`` turns the mesh and
+    its switches off (the reference's), ``mesh`` replaces the case's mesh
+    opts; ``f32`` is the f32 check's: SGD, as phases 22-23 (AdamW's
+    normalisation lifts float noise in near-zero gradients to a whole
+    step)."""
+    _, entry, cfg, mesh_opts, depth, _, _ = MESH_CASES[case]
+    mesh_opts = mesh or mesh_opts
+    data = os.path.join(tmp, "mp_div2k" if entry == "main" else "mp_train")
+    return ["--cfg", cfg, "--data-path", data, "--mode", "train", "--output",
+            os.path.join(tmp, "out"), "--tag", tag, *extra,
+            *(("--disable_amp",) if f32 else ()), "--opts",
+            *(MOE_ONE_CARD if one_process else mesh_opts), *depth, *MESH_ONCE,
+            *(("TRAIN.OPTIMIZER.NAME", "sgd") if f32 else ())]
+
+
+def mesh_f32_batch(case, trainer):
+    """The data index's share of the case's seeded global f32 batch, prepared
+    (hisfrag: pairs mined with one seed on every rank)."""
+    _, entry, *_, n = MESH_CASES[case]
+    x, y = mp_f32_batch("main" if entry == "main" else "hisfrag", 0, n)
+    m = n // trainer.data_size
+    rows = slice(trainer.data_index * m, (trainer.data_index + 1) * m)
+    np.random.seed(0)
+    return trainer.prepare_data(x[rows], y[rows])
+
+
+def state_bytes(trainer):
+    """(parameter bytes, optimizer moment bytes) this rank holds: the
+    training parameters and, where a sharded trainer holds it beside them,
+    the whole model's."""
+    params = sum(p.numel() * p.element_size() for p in trainer.train_model.parameters())
+    if trainer.train_model is not trainer.model:
+        params += sum(p.numel() * p.element_size() for p in trainer.model.parameters()
+                      if not p.is_meta)
+    moments = sum(v.numel() * v.element_size() for st in trainer.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v) and v.dim())
+    return params, moments
+
+
+def mesh_heads_check(rank, world):
+    """24b: this rank's share of pjs-L's heads (t = ``world``, head-aligned
+    as parallel/tp.py splits qkv and kv) through the pair kernels, against
+    the unsharded call's output on those heads: bit-equal flags per dtype
+    and layout."""
+    from vit_ed_tpu_torch.parallel.mesh import Spec
+    from vit_ed_tpu_torch.parallel.tp import shard_index
+
+    c, h = 1024, 16
+    gen = torch.Generator("cuda").manual_seed(24)
+    cols = slice(rank * c // world, (rank + 1) * c // world)
+    qkv_idx = shard_index("blocks.0.attn.qkv.weight", Spec("model", 0), 3 * c, world, rank)
+    kv_idx = shard_index("cross_blocks.0.cross_attn.kv.weight", Spec("model", 0), 2 * c,
+                         world, rank)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(2, 1025, 3 * c, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(2, 1025, c, generator=gen, device="cuda").to(dtype)
+        kv = torch.randn(2, 1024, 2 * c, generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            whole = (A.fused_attention_packed_qkv(qkv, h), A.fused_attention_packed_kv(q, kv, h))
+            share = (A.fused_attention_packed_qkv(qkv[..., qkv_idx.cuda()].contiguous(),
+                                                  h // world, width=c),
+                     A.fused_attention_packed_kv(q[..., cols].contiguous(),
+                                                 kv[..., kv_idx.cuda()].contiguous(),
+                                                 h // world, width=c))
+        name = str(dtype).split(".")[-1]
+        out[name] = {"qkv": torch.equal(share[0], whole[0][..., cols]),
+                     "kv": torch.equal(share[1], whole[1][..., cols])}
+    return out
+
+
+def gloo_cuda_probe():
+    """Which collectives gloo takes on CUDA tensors (every rank calls it):
+    {name: "ok" or the error's first line}."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.ones(4 * world, device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty(4, device="cuda")
+                                               for _ in range(world)], x[:4].clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device="cuda"), x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device="cuda"), x[:4].clone()),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:     # the probe reports what is missing
+            out[name] = str(e).splitlines()[0][:160]
+        dist.barrier()
+    return out
+
+
+def mesh_child(spec_path):
+    """One rank of a phase-24 case (``python chip_smoke.py --mesh-child
+    <spec.json>``; WORLD_SIZE, RANK, LOCAL_RANK and MASTER_* from the
+    environment): joins the gloo group, drives the entry's ``main(argv)`` in
+    bf16 on the case's mesh (launch counts reset before; each update's host
+    ms, the collectives' host ms in it, the aux terms and a digest of the
+    gathered model), then one f32 update on the seeded global batch's share
+    of its data index; writes what it saw to ``spec['result']`` and rank 0's
+    gathered f32 parameters beside it."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from vit_ed_tpu_torch.parallel import mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh.maybe_init_distributed(backend="gloo", timeout=MP_TIMEOUT)
+    rank, world = mesh.process_index(), mesh.process_count()
+    case, res = spec["case"], spec["result"]
+    entry = importlib.import_module(f"vit_ed_tpu_torch.{MESH_CASES[case][1]}")
+    cls = entry.HisfragTrainer if MESH_CASES[case][1] == "hisfrag" else entry.DefaultTrainer
+    comm = [0.0]
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            comm[0] += (time.time() - t0) * 1e3
+            return out
+        return call
+
+    for name in ("all_reduce", "all_gather", "broadcast", "reduce_scatter_tensor"):
+        setattr(dist, name, timed(getattr(dist, name)))
+    inner, steps = cls.train_step, []
+
+    def recorded(self, micro_batches):
+        c0 = comm[0]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, norm = inner(self, micro_batches)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        aux = None if self.moe_aux is None else self.moe_aux.float().cpu().tolist()
+        held = state_bytes(self)          # while training, before local_params
+        steps.append({"ms": ms, "comm_ms": comm[0] - c0, "loss": loss.item(), "aux": aux,
+                      "held": held, "digest": param_digest(self.local_params())})
+        return loss, norm
+
+    result = {"rank": rank}
+    if spec.get("probe"):
+        result["probe"] = gloo_cuda_probe()
+    A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cls.train_step = recorded
+    t0 = time.time()
+    try:
+        trainer = entry.main(spec["argv"])
+    finally:
+        cls.train_step = inner
+    torch.cuda.synchronize()
+    held = steps[-1]["held"]
+    result["entry"] = {
+        "seconds": time.time() - t0, "steps": steps, "launches": nonzero(A.launches),
+        "by_shape": {"|".join(map(str, k)): n for k, n in A.launches_by_shape.items() if n},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "params_bytes": held[0],
+        "moments_bytes": held[1], "mesh": trainer.mesh.shape,
+        "data_index": trainer.data_index,
+        "whole_params": sum(p.numel() for p in trainer.model.parameters())}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = cls(entry.parse_option(spec["f32_argv"]))
+    trainer.setup_training(1)
+    batch = mesh_f32_batch(case, trainer)
+    np.savez(res + ".f32batch.npz", **batch)
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = trainer.train_step([batch])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    held = state_bytes(trainer)
+    whole = trainer.local_params()
+    if rank == 0:
+        torch.save({n: p.detach().cpu() for n, p in whole.named_parameters()},
+                   res + ".f32params.pt")
+    result["f32"] = {"loss": loss.item(), "digest": param_digest(whole), "peak_gib": peak,
+                     "params_bytes": held[0], "moments_bytes": held[1],
+                     "aux": None if trainer.moe_aux is None
+                     else trainer.moe_aux.float().cpu().tolist()}
+    del trainer, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("heads"):
+        result["heads"] = mesh_heads_check(rank, world)
+    with open(res, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def mesh_one_process(case, tmp, run, results):
+    """The f32 update of the case's whole global batch in this process,
+    without a mesh, on the batches the ranks prepared (the shares of the
+    data indices concatenated): (trainer, its loss, peak GiB, parameter
+    and moment bytes)."""
+    import importlib
+
+    entry = importlib.import_module(f"vit_ed_tpu_torch.{MESH_CASES[case][1]}")
+    cls = entry.HisfragTrainer if MESH_CASES[case][1] == "hisfrag" else entry.DefaultTrainer
+    n = MESH_CASES[case][6]
+    trainer = cls(entry.parse_option(mesh_argv(
+        case, tmp, f"{case}_1p", "--batch-size", str(n), one_process=True, f32=True)))
+    trainer.setup_training(1)
+    shares = {r["entry"]["data_index"]: res for r, res in zip(results, run.results)}
+    parts = [dict(np.load(shares[i] + ".f32batch.npz")) for i in sorted(shares)]
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = trainer.train_step([batch])
+    torch.cuda.synchronize()
+    return (trainer, loss.item(), torch.cuda.max_memory_allocated() / 2**30,
+            *state_bytes(trainer))
+
+
+def shape_bound(key):
+    """``heads_bound`` of a launch key ``kernel|B|H|Sq|Sk|D`` (the packed
+    layouts move the same elements as the 4-D ones)."""
+    name, b, h, sq, sk, d = key.split("|")
+    kind = "dq" if name.endswith("_dq") else "dkv" if name.endswith("_dkv") else "forward"
+    return heads_bound(kind, int(b), int(sq), int(sk), int(h), int(d),
+                       shared="kv_shared" in name)
+
+
+def mesh_case_check(card, case, run, results, tmp):
+    """One case's holds: every rank's launches and bit-equal gathered
+    parameters after each update; the f32 update against one process."""
+    world, entry_name, cfg, mesh_opts, depth, batch, n = MESH_CASES[case]
+    kernels = MP_HEADS_KERNELS if entry_name == "main" else MP_PAIR_KERNELS
+    e0 = results[0]["entry"]
+    for r in results:
+        e = r["entry"]
+        missing = [k for k in kernels if e["launches"].get(k, 0) <= 0]
+        comm = [round(100 * s["comm_ms"] / s["ms"], 1) for s in e["steps"]]
+        print(f"  {card}: {case} rank {r['rank']} of {world} on {e['mesh']}: "
+              f"{len(e['steps'])} updates, losses {[round(s['loss'], 4) for s in e['steps']]}; "
+              f"ms per update (host clock, the ranks time-slice one card) "
+              f"{[round(s['ms'], 1) for s in e['steps']]}, of it the gloo collectives "
+              f"{comm}%; peak {e['peak_gib']:.2f} GiB; holds while it trains "
+              f"{e['params_bytes'] / 2**20:.1f} MiB of parameters (its shards and any whole "
+              f"copy) and {e['moments_bytes'] / 2**20:.1f} MiB of AdamW moments; "
+              f"launches {e['launches']}", flush=True)
+        if missing:
+            raise AssertionError(f"{case}: rank {r['rank']} never launched {missing}")
+    print(f"  {case}: launches by (kernel, B, H, Sq, Sk, D) per rank over "
+          f"{len(e0['steps'])} updates and the validates: {e0['by_shape']}", flush=True)
+    print(f"  {case}: bound of one launch at each shape (bf16, ms, by): "
+          + "; ".join(f"{k} {shape_bound(k)[0]:.4f} ({shape_bound(k)[1]})"
+                      for k in e0["by_shape"]), flush=True)
+    digests = [[s["digest"] for s in r["entry"]["steps"]] for r in results]
+    aux = [[s["aux"] for s in r["entry"]["steps"]] for r in results]
+    print(f"  {case}: gathered parameters bit-equal across the ranks after each update: "
+          f"{[len(set(d)) == 1 for d in zip(*digests)]}; aux terms equal on every rank: "
+          f"{all(a == aux[0] for a in aux)}", flush=True)
+    if len(digests[0]) < 3 or any(d != digests[0] for d in digests) or any(
+            a != aux[0] for a in aux):
+        raise AssertionError(f"{case}: the ranks' parameters or aux terms differ")
+    trainer, loss, peak, p_bytes, m_bytes = mesh_one_process(case, tmp, run, results)
+    worst, at = worst_gap(trainer.model, run.results[0] + ".f32params.pt")
+    f0 = results[0]["f32"]
+    f32_digests = {r["f32"]["digest"] for r in results}
+    entry_peak = max(r["entry"]["peak_gib"] for r in results)
+    aux_f32 = [r["f32"]["aux"] for r in results]
+    one_aux = None if trainer.moe_aux is None else trainer.moe_aux.float().cpu().tolist()
+    print(f"  {case}: f32 SGD update on the global batch of {n} against one process: loss "
+          f"{f0['loss']:.6f} / {loss:.6f}; worst max|gap|/max {worst:.3e} at {at} (tol 1e-5); "
+          f"gathered parameters bit-equal on the ranks {len(f32_digests) == 1}; aux terms "
+          f"equal on the ranks {all(a == aux_f32[0] for a in aux_f32)} (one process: "
+          f"{one_aux}); per rank {f0['params_bytes'] / 2**20:.1f} MiB of parameters + "
+          f"{f0['moments_bytes'] / 2**20:.1f} MiB of momentum, peak "
+          f"{max(r['f32']['peak_gib'] for r in results):.2f} GiB (one process: "
+          f"{p_bytes / 2**20:.1f} + {m_bytes / 2**20:.1f} MiB, peak {peak:.2f} GiB); the bf16 "
+          f"entry's AdamW run peaked at {entry_peak:.2f} GiB per rank", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if worst > 1e-5 or len(f32_digests) != 1 or any(a != aux_f32[0] for a in aux_f32):
+        raise AssertionError(f"{case}: the sharded f32 update differs from one process's")
+
+
+def phase_nccl_mesh(tmp):
+    """24d: one NCCL rank (the default backend, a group of one rank on the
+    card) with TP, EP and FSDP on over a [1, 1, 1] mesh, every leaf held
+    under its rule over its axis's group of one rank, so that every
+    collective path runs: one f32 update against the plain update."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vit_ed_tpu_torch import hisfrag
+    from vit_ed_tpu_torch.parallel.compose import composed_param_specs
+    from vit_ed_tpu_torch.parallel.mesh import CARD_BACKEND
+
+    argv = mesh_argv("24c", tmp, "mesh_nccl", "--batch-size", "4", f32=True,
+                     mesh=("TPU.MESH_SHAPE", "[1, 1, 1]", "TPU.SEQ_PARALLEL", "False"))
+    plain = mesh_argv("24c", tmp, "mesh_plain", "--batch-size", "4", f32=True,
+                      one_process=True)
+    names = ("all_reduce", "all_gather", "reduce_scatter_tensor", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+    calls = {}
+
+    def counted(name):
+        def call(tensor, *args, **kwargs):
+            key = f"{name} {getattr(tensor, 'device', 'list').type if torch.is_tensor(tensor) else 'list'}"
+            calls[key] = calls.get(key, 0) + 1
+            return saved[name](tensor, *args, **kwargs)
+        return call
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    states = {}
+    for mode in ("plain", "nccl"):
+        if mode == "nccl":
+            dist.init_process_group(CARD_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                    world_size=1, rank=0)
+            for n in names:
+                setattr(dist, n, counted(n))
+        try:
+            t = hisfrag.HisfragTrainer(hisfrag.parse_option(plain if mode == "plain" else argv))
+            if mode == "nccl":
+                # every rule's split kept over its axis of one rank
+                t.specs = composed_param_specs(t.model, tp=True, ep=True, fsdp=True,
+                                               data_axis_size=1)
+                t.sharded = True
+            t.setup_training(1)
+            np.random.seed(0)
+            loss, _ = t.train_step([t.prepare_data(*mp_f32_batch("hisfrag", 0, 4))])
+            model = t.local_params()
+            states[mode] = ({n: p.detach().clone() for n, p in model.named_parameters()},
+                            loss.item(), t.train_model is not t.model)
+            del t, model
+        finally:
+            if mode == "nccl":
+                for n in names:
+                    setattr(dist, n, saved[n])
+                backend = dist.get_backend()
+                dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    worst = max(((states["nccl"][0][n] - p).abs().max() / p.abs().max().clamp(min=1e-30)).item()
+                for n, p in states["plain"][0].items())
+    print(f"  {card_line()}: 24d: one rank, backend {backend}, TP + EP + FSDP on [1, 1, 1] "
+          f"with every rule's split kept (sharded training model {states['nccl'][2]}): "
+          f"collective calls {calls}; loss {states['nccl'][1]:.6f} vs plain "
+          f"{states['plain'][1]:.6f}; parameters worst max|gap|/max {worst:.3e} (tol 1e-6)",
+          flush=True)
+    want = ("all_reduce cuda", "all_gather list", "reduce_scatter_tensor cuda")
+    if worst > 1e-6 or not states["nccl"][2] or any(calls.get(k, 0) <= 0 for k in want):
+        raise AssertionError("24d: the NCCL mesh step differs or skipped a collective")
+
+
+def phase_mesh(tmp):
+    """Phase 24: the process mesh on ranks that share the card over gloo
+    (24a-c, their ranks all started together), then one NCCL rank."""
+    card = card_line()
+    t_phase = time.time()
+    header("== phase 24: the process mesh (TPU.MESH_SHAPE / MESH_AXES) with FSDP, tensor "
+           "and expert parallelism on gloo ranks that share one card, full widths, seed 0: "
+           "(a) div2k_pjsS_fsdp on [2], (b) pjs-L TP on [1, 2], (c) the pjs-L MoE hybrid on "
+           "[1, 2, 2] (SEQ_PARALLEL off); then (d) one NCCL rank. The ranks time-slice one "
+           "card: their times are no speedup", flush=True)
+    runs = {}
+    try:
+        for case, (world, *_rest) in MESH_CASES.items():
+            n = MESH_CASES[case][6]
+            spec = {"case": case,
+                    "argv": mesh_argv(case, tmp, f"mesh_{case}", "--batch-size",
+                                      str(MESH_CASES[case][5])),
+                    # the LR scales by BATCH_SIZE x world: the one process's n
+                    "f32_argv": mesh_argv(case, tmp, f"mesh_{case}32", "--batch-size",
+                                          str(n // world), f32=True),
+                    "heads": case == "24b", "probe": case == "24a"}
+            runs[case] = MpRun(tmp, case, None, None, child="--mesh-child", spec=spec,
+                               world=world,
+                               env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        results = {case: run.finish(timeout=900) for case, run in runs.items()}
+    finally:
+        mp_stop_all()
+    for case, label in (("24a", "FSDP: python -m vit_ed_tpu_torch.main --cfg "
+                                "configs/scale/div2k_pjsS_fsdp.yaml over 2 ranks, [2]"),
+                        ("24b", "TP: python -m vit_ed_tpu_torch.hisfrag --cfg "
+                                "configs/scale/hisfrag20_pjsL_tp_sp.yaml --opts TPU.MESH_SHAPE "
+                                "[1, 2] TPU.SEQ_PARALLEL False at 2 + 2 blocks, over 2 ranks"),
+                        ("24c", "EP with TP: python -m vit_ed_tpu_torch.hisfrag --cfg "
+                                "configs/scale/hisfrag20_pjsL_moe_hybrid.yaml --opts "
+                                "TPU.MESH_SHAPE [1, 2, 2] TPU.SEQ_PARALLEL False at 2 + 2 "
+                                "blocks, over 4 ranks")):
+        header(f"== phase {case}: {label} ({runs[case].seconds:.1f}s with its ranks' start)",
+               flush=True)
+        if case == "24a":
+            probe = results[case][0]["probe"]
+            print(f"  gloo on CUDA tensors (2 ranks): {probe} (the FSDP gradients ride "
+                  f"reduce_scatter_tensor, parallel/mesh.py reduce_scatter_flat)", flush=True)
+            if probe["reduce_scatter_tensor"] != "ok":
+                raise AssertionError("24a: gloo refused the reduce-scatter on CUDA tensors")
+        mesh_case_check(card, case, runs[case], results[case], tmp)
+        if case == "24b":
+            heads = [r["heads"] for r in results[case]]
+            print(f"  24b: each rank's 8 heads of pjs-L through the pair kernels (qkv, kv; "
+                  f"the route of the unsharded 1,024-wide call) equal the unsharded call's "
+                  f"output on those heads bit for bit: {heads}", flush=True)
+            if not all(v for h in heads for d in h.values() for v in d.values()):
+                raise AssertionError("24b: a rank's heads differ from the unsharded call's")
+    header("== phase 24d: one rank with the default backend (cpu:gloo,cuda:nccl), every "
+           "switch on", flush=True)
+    phase_nccl_mesh(tmp)
+    print(f"  phase 24 took {time.time() - t_phase:.1f}s on {card}", flush=True)
+
+
+def mesh_only():
+    """``python chip_smoke.py --mesh-only``: the kernels built, phase 24's
+    data written as phases 13 and 22 write it, then phase 24 alone (the
+    quickest check of the process mesh on the card; prints no kernels
+    line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    _SUB["start"] = t0
+    print(card_line(), flush=True)
+    _build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_div2k(os.path.join(tmp, "div2k"))
+        mp_link_subset(os.path.join(tmp, "div2k"), os.path.join(tmp, "mp_div2k"), 77, 8)
+        write_corpus(os.path.join(tmp, "mp_train"), writers=3, sub="train", seed=1)
+        try:
+            phase_mesh(tmp)
+        finally:
+            mp_stop_all()
+    sub_done()
+    print(f"  total {time.time() - t0:.1f}s", flush=True)
+    return 0
+
+
+def late_child(tmp):
+    """Phases 22-24, then 16d and phase 21's entry, upcycling and export, in
+    a child of their own (``python
+    chip_smoke.py --late-phases <tmp>``), started after the phases that
+    time kernels or steps, beside 20, 16e-f, 17d, 18c-f and 19: phase 5's
+    scan results come from ``tmp/scan5.npz``, 16d's arguments from
+    ``tmp/preempt16.json``."""
+    _SUB["start"], _SUB["origin"] = time.time(), "this child's start"
+    _build.build_all()
+    with np.load(os.path.join(tmp, "scan5.npz")) as f:
+        scan5 = {"dm": f["dm"], "metrics": f["metrics"]}
+    with open(os.path.join(tmp, "preempt16.json")) as f:
+        preempt16 = json.load(f)
+    try:
+        phase_multiprocess(tmp, scan5)
+        phase_coupled(tmp)
+        phase_mesh(tmp)
+        phase_michigan_preempt(tmp, *preempt16)
+        header("== phase 21 (the entry, upcycling and export at 2 + 2 blocks)", flush=True)
+        phase_moe_entry(tmp)
+    finally:
+        mp_stop_all()
+    sub_done()
+    return 0
+
+
+def late_start(tmp, scan5, preempt16):
+    """Start the child of phases 22-24 and 16d; its output goes to
+    ``tmp/late.log``."""
+    np.savez(os.path.join(tmp, "scan5.npz"), dm=np.asarray(scan5["dm"]),
+             metrics=np.asarray(scan5["metrics"], np.float64))
+    with open(os.path.join(tmp, "preempt16.json"), "w") as f:
+        json.dump(list(preempt16), f)
+    log = open(os.path.join(tmp, "late.log"), "w")
+    # two CPU threads per process of the child and its ranks: the host's
+    # cores are shared with the phases beside it
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--late-phases", tmp],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1",
+                                 "OMP_NUM_THREADS": "2"},
+                            start_new_session=True)
+    proc.own_session = True
+    log.close()
+    _BACKGROUND.append(proc)
+    print("  [phases 22-24, 16d and 21's entry started in a child beside phases 20, 16e-f, "
+          "17d, 18c-f and 19]", flush=True)
+    return proc, time.time()
+
+
+def late_finish(late, tmp, timeout=1200):
+    """Wait for phases 22-24's child and print its output; raises unless it
+    exits 0."""
+    proc, t0 = late
+    t_wait = time.time()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(os.path.join(tmp, "late.log")) as f:
+        sys.stdout.write(f.read())
+    print(f"  [the child of phases 22-24, 16d and 21's entry: exit {rc}, "
+          f"{time.time() - t0:.1f}s after "
+          f"its start, of it {time.time() - t_wait:.1f}s waited for after phase 19]",
+          flush=True)
+    if rc != 0:
+        raise AssertionError(f"the child of phases 22-24, 16d and 21's entry exited {rc}")
+    _BACKGROUND.remove(proc)
 
 
 def main():
@@ -5824,9 +6474,10 @@ def main():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
     t_start = time.time()
+    _SUB["start"] = t_start
     dev = resolve_device("cuda")
     card = card_line()
-    print("== phase 1: the card", flush=True)
+    header("== phase 1: the card", flush=True)
     print(f"  {card}")
     print(f"  torch {torch.__version__} CUDA {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(dev)}", flush=True)
@@ -5864,19 +6515,33 @@ def main():
             eval_shapes_run, eval_times, n_puzzles, eval15 = phase_puzzle_eval(
                 tmp, puzzle_ckpt, gen)
             mark("phase 15")
-            michigan_rows = phase_michigan(tmp, gen)
+            # the phases that time kernels or steps first, alone on the card:
+            # 16a-c, 17a-c and 17e, 18a-b, 21; then phases 22-24 in a child
+            # beside the rest (16d-f, 17d, 18c-f, 19, 20)
+            michigan_rows, preempt16 = phase_michigan(tmp, gen)
             vit_rows = phase_vit(tmp, gen)
-            pajigsaw_rows, lrf_shapes = phase_pajigsaw(tmp, gen)
+            pajigsaw_rows = phase_pajigsaw(tmp, gen)
+            phase_moe(tmp)
+            mark("phases 16a-c, 17a-c, 17e, 18a-b and 21's updates")
+            late = late_start(tmp, scan5, preempt16)
+            # phase 20 first: its children (e) and (f) then run beside the rest
+            serve = phase_serve(tmp, scan5, gen, export_bucketed_start(tmp))
+            michigan_rows = michigan_rows()
+            vit_rows = vit_rows()
+            pajigsaw_rows, lrf_shapes = pajigsaw_rows()
             phase_slice11(tmp, gen, scan5, eval15, puzzle_ckpt)
-            serve, _ = phase_slice12(tmp, gen, scan5)
-            phase_multiprocess(tmp, scan5)
+            mark("phases 20, 16e-f, 17d, 18c-f and 19")
+            late_finish(late, tmp)
             serve_children_finish(serve)
-            mark("phases 16-22")
-            phase_coupled(tmp)
-            mark("phase 23")
+            mark("phases 22-24, 16d, 21's entry (their child) and 20(e)-(f)")
         finally:
-            for proc in _BACKGROUND:      # 20(e) and (f) if a phase failed first
-                serve_cli_stop(proc)
+            for proc in _BACKGROUND:      # 20(e), (f), 22-24 if a phase failed first
+                if getattr(proc, "own_session", False):
+                    with contextlib.suppress(ProcessLookupError):   # none left
+                        os.killpg(proc.pid, signal.SIGKILL)   # 22-24's ranks with it
+                    proc.wait()
+                else:
+                    serve_cli_stop(proc)
 
     print(f"  off every main path, packed: {json.dumps(times['packed'])} "
           f"max_abs_err {err['packed']:.3e}; packed_bwd: "
@@ -5972,6 +6637,7 @@ def main():
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its main path")
+    sub_done()
     print(f"  total {time.time() - t_start:.1f}s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -5986,4 +6652,10 @@ if __name__ == "__main__":
         sys.exit(rank_child(sys.argv[2]))
     if sys.argv[1:2] == ["--coupled-child"]:
         sys.exit(coupled_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--late-phases"]:
+        sys.exit(late_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-only"]:
+        sys.exit(mesh_only())
     sys.exit(main())

@@ -282,7 +282,9 @@ def _worker(outdir):
     for name, build in (
             ("lr_finder", lambda: LrFinderTrainer(_args(DIV2K_CFG, COMMON, out, "lrf", 2))),
             ("mesh", lambda: HisfragVitTrainer(_args(
-                HISFRAG_CFG, VIT_OPTS + COMMON + ["TPU.MESH_SHAPE", "[2]"], out, "mesh", 2)))):
+                HISFRAG_CFG, VIT_OPTS + COMMON + ["TPU.MESH_SHAPE", "[1, 2]",
+                                                  "TPU.SEQ_PARALLEL", "True"],
+                out, "mesh", 2)))):
         try:
             build()
             said[name] = None
@@ -615,7 +617,8 @@ def test_hisfrag_vit_loss_matches_jax(coupled):
 
 
 def test_refusals_under_two_ranks(coupled):
-    """lr_finder and a mesh switch still raise on two ranks."""
+    """lr_finder and a switch the port does not run yet (SEQ_PARALLEL on a
+    [1, 2] mesh: ROADMAP item 12b part 2) still raise on two ranks."""
     outdir, _ = coupled
     for rank in range(2):
         with open(os.path.join(outdir, f"rank{rank}_refused.json")) as f:

@@ -14,7 +14,7 @@ the entries that refuse several processes.
 - On two ranks a BatchNorm type, MoE and ``hisfrag_vit`` build their
   trainers (their statistics and losses are the global batch's:
   tests/test_torch_mp_coupled.py), while ``lr_finder`` raises, saying why,
-  and a mesh switch raises naming A12b; an entry without a multi-process
+  and SEQ_PARALLEL on a ``[1, 2]`` mesh raises naming A12b part 2; an entry without a multi-process
   path raises under ``WORLD_SIZE`` 2.
 
 Run as ``python tests/test_torch_mp_preempt.py <outdir> scan|refuse``, the
@@ -105,7 +105,8 @@ def _refuse_worker(outdir):
         "moe": (main, ["--cfg", CFG, "--opts", *TINY, "MODEL.PJS.MOE.EXPERTS", "4"]),
         "hisfrag_vit": (hisfrag_vit, ["--cfg", HISFRAG_CFG, "--opts", *vit]),
         "lr_finder": (lr_finder, ["--cfg", CFG]),
-        "mesh": (hisfrag_vit, ["--cfg", HISFRAG_CFG, "--opts", *vit, "TPU.MESH_SHAPE", "[2]"]),
+        "mesh": (hisfrag_vit, ["--cfg", HISFRAG_CFG, "--opts", *vit, "TPU.MESH_SHAPE",
+                               "[1, 2]", "TPU.SEQ_PARALLEL", "True"]),
     }
     said = {}
     for name, (entry, argv) in cases.items():

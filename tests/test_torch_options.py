@@ -98,12 +98,12 @@ def test_head_dropout_draws_from_the_model_generator():
     assert torch.all(model.head.weight.grad[:, ~mask.any(0)] == 0)
 
 
-# the switches the port still refuses: each raises naming its ROADMAP item
-# (12b: the parallelism of several cards)
+# the switches the port still refuses: each raises naming its part of
+# ROADMAP item 12b (part 2: the token axis on 'model', part 3: the pipeline;
+# part 1, FSDP / TP / EP, is ported: tests/test_torch_mesh_train.py)
 UNPORTED_SWITCHES = [
-    ("TPU.SEQ_PARALLEL", "True"), ("TPU.RING_ATTN", "True"), ("TPU.FSDP", "True"),
-    ("TPU.TENSOR_PARALLEL", "True"), ("TPU.EXPERT_PARALLEL", "True"),
-    ("TPU.PIPELINE_STAGES", "2"),
+    ("TPU.SEQ_PARALLEL", "True", 2), ("TPU.RING_ATTN", "True", 2),
+    ("TPU.PIPELINE_STAGES", "2", 3),
 ]
 
 
@@ -114,15 +114,37 @@ def _hisfrag_config(*opts):
               "MODEL.PJS.C_DEPTH", "1", "DATA.IMG_SIZE", "32", *opts]))
 
 
-@pytest.mark.parametrize("key,value", UNPORTED_SWITCHES)
-def test_unported_switches_raise_with_their_roadmap_item(key, value):
-    with pytest.raises(NotImplementedError, match=rf"{key}.*item 12b"):
+@pytest.mark.parametrize("key,value,part", UNPORTED_SWITCHES)
+def test_unported_switches_raise_with_their_roadmap_item(key, value, part):
+    with pytest.raises(NotImplementedError, match=rf"{key}.*item 12b part {part}"):
         build_model(_hisfrag_config(key, value))
 
 
+@pytest.mark.parametrize("key,value,part", UNPORTED_SWITCHES)
+def test_trainer_on_a_mesh_refuses_the_unported_switches(tmp_path, key, value, part):
+    """Through the trainer (its mesh and checks first): SEQ_PARALLEL and
+    RING_ATTN on a ``model`` axis, and PIPELINE_STAGES, still raise naming
+    A12b part 2 or 3."""
+    from vit_ed_tpu_torch.train.engine import Trainer
+
+    # RING_ATTN needs SEQ_PARALLEL (the JAX check), which raises first
+    ring = ["TPU.SEQ_PARALLEL", "True"] if key == "TPU.RING_ATTN" else []
+    opts = ["TPU.MESH_SHAPE", "[1, 1]", *ring, key, value]
+    args = types.SimpleNamespace(device="cpu", cfg=str(ROOT / "configs" / "hisfrag" /
+                                                       "hisfrag20_patch16_512.yaml"),
+                                 output=str(tmp_path),
+                                 opts=["MODEL.PJS.EMBED_DIM", "64", "MODEL.PJS.NUM_HEADS",
+                                       "1", "MODEL.PJS.DEPTH", "1", "MODEL.PJS.C_DEPTH", "1",
+                                       "DATA.IMG_SIZE", "32", *opts])
+    want = "TPU.SEQ_PARALLEL" if ring else key
+    with pytest.raises(NotImplementedError, match=rf"{want}.*item 12b part {part}"):
+        Trainer(args)
+
+
 def test_meshes_and_multichip_bundles_raise_with_their_roadmap_item(tmp_path):
-    """A mesh (the trainer), a multi-chip bundle (export, load, the host's
-    --mesh-data, the export entry's --mesh-data) raise naming item 12b."""
+    """A mesh with the token axis on 'model' (the trainer; part 2), a
+    multi-chip bundle (export, load, the host's --mesh-data, the export
+    entry's --mesh-data; part 4) raise naming item 12b."""
     from vit_ed_tpu_torch import export_serving
     from vit_ed_tpu_torch.serve import export_scorer, load_scorer
     from vit_ed_tpu_torch.serve.server import main as serve_main
@@ -130,7 +152,8 @@ def test_meshes_and_multichip_bundles_raise_with_their_roadmap_item(tmp_path):
 
     args = types.SimpleNamespace(
         device="cpu", cfg=str(ROOT / "configs" / "hisfrag" / "hisfrag20_patch16_512.yaml"),
-        opts=["TPU.MESH_SHAPE", "[2]"])
+        output=str(tmp_path / "out"),
+        opts=["TPU.MESH_SHAPE", "[1, 1]", "TPU.SEQ_PARALLEL", "True"])
     with pytest.raises(NotImplementedError, match="item 12b"):
         Trainer(args)
     model = build_model(_hisfrag_config()).eval()

@@ -317,10 +317,15 @@ def test_build_model_types_and_unported_options():
     model = build_model(config)
     assert isinstance(model, ViT) and hasattr(model.blocks[0].mlp, "fc1")
     config.MODEL.PJS.MOE.EXPERTS = 0
-    # the parallelism switches still raise, naming their ROADMAP item
-    config.TPU.TENSOR_PARALLEL = True
-    with pytest.raises(NotImplementedError, match="TPU.TENSOR_PARALLEL.*item 12b"):
+    # the parallelism switches the trainer does not shard yet still raise,
+    # naming their part of ROADMAP item 12b (TENSOR_PARALLEL builds the whole
+    # model, which the trainer shards: tests/test_torch_mesh_train.py)
+    config.TPU.SEQ_PARALLEL = True
+    with pytest.raises(NotImplementedError, match="TPU.SEQ_PARALLEL.*item 12b part 2"):
         build_model(config)
+    config.TPU.SEQ_PARALLEL = False
+    config.TPU.TENSOR_PARALLEL = True
+    assert isinstance(build_model(config), ViT)
     config.TPU.TENSOR_PARALLEL = False
     config.TPU.FAST_GELU = True
     assert build_model(config).blocks[0].mlp.act.__name__ == "gelu_tanh"

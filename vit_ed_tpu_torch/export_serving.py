@@ -76,7 +76,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             f"it runs on (--device cuda or cpu), not for a TPU")
     if args.mesh_data:
         raise NotImplementedError("--mesh-data: multi-chip bundles are not "
-                                  "ported yet (ROADMAP queue A item 12b)")
+                                  "ported yet (ROADMAP queue A item 12b part 4)")
     device = resolve_device(args.device)
     os.makedirs(args.output, exist_ok=True)
     logger = create_logger(args.output, name="export")

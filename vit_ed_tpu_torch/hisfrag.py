@@ -136,9 +136,9 @@ class HisfragTrainer(Trainer):
                                         transforms=self.get_transforms())
         sampler = MPerClassSampler(dataset.data_labels, m=3,
                                    length_before_new_iter=len(dataset) * repeat,
-                                   seed=self.config.SEED + self.rank)
+                                   seed=self.config.SEED + self.data_index)
         loader = DataLoader(dataset, sampler=sampler,
-                            batch_size=self.config.DATA.BATCH_SIZE,
+                            batch_size=self.local_batch_size,
                             num_workers=self.config.DATA.NUM_WORKERS,
                             drop_last=True)
         self.data_loader_registers[mode] = loader
@@ -151,7 +151,7 @@ class HisfragTrainer(Trainer):
             return self.config.TPU.MAX_TRAIN_PAIRS
         # + the global device count, as in the JAX entry: it moves the
         # miner's np.random.permutation cut
-        return (int(1 + self.NEG_PAIR_RATIO) * self.config.DATA.BATCH_SIZE
+        return (int(1 + self.NEG_PAIR_RATIO) * self.local_batch_size
                 + self.world_size)
 
     def rank_loss_weight(self) -> float:
@@ -165,7 +165,8 @@ class HisfragTrainer(Trainer):
         if self.LOSS_REDUCTION != "mean":
             return
         counts = host_allreduce_sum(np.asarray(
-            [int(b["pair_mask"].sum()) for b in micro_batches], np.int64))
+            [int(b["pair_mask"].sum()) for b in micro_batches], np.int64),
+            group=self.mesh.group("data"))
         for b, c in zip(micro_batches, counts):
             b["pair_count"] = np.asarray([max(int(c), 1)], np.float32)
 

@@ -118,12 +118,12 @@ class HisfragVitTrainer(PairHisfragTrainer):
         if mode == "train":
             sampler = MPerClassSampler(dataset.data_labels, m=3,
                                        length_before_new_iter=len(dataset) * repeat,
-                                       seed=self.config.SEED + self.rank)
-            drop_last = True
+                                       seed=self.config.SEED + self.data_index)
+            drop_last, batch_size = True, self.local_batch_size
         else:
-            sampler, drop_last = None, False
+            sampler, drop_last, batch_size = None, False, self.config.DATA.BATCH_SIZE
         loader = DataLoader(dataset, sampler=sampler,
-                            batch_size=self.config.DATA.BATCH_SIZE,
+                            batch_size=batch_size,
                             num_workers=self.config.DATA.NUM_WORKERS,
                             drop_last=drop_last)
         self.data_loader_registers[mode] = loader

@@ -181,9 +181,9 @@ class MichiganTrainer(HisfragTrainer):
         self.logger.info(f"[{mode}] Dataset length: {max_len}")
         sampler = MPerClassSampler(dataset.data_labels, m=3,
                                    length_before_new_iter=max_len,
-                                   seed=self.config.SEED + self.rank)
+                                   seed=self.config.SEED + self.data_index)
         loader = DataLoader(dataset, sampler=sampler,
-                            batch_size=self.config.DATA.BATCH_SIZE,
+                            batch_size=self.local_batch_size,
                             num_workers=self.config.DATA.NUM_WORKERS,
                             drop_last=True)
         self.data_loader_registers[mode] = loader

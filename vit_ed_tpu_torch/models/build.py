@@ -6,8 +6,10 @@ baselines), and the BatchNorm baselines ``ss`` / ``ss2`` / ``ss2ce``
 (SimSiam, models/simsiam.py) and ``resnet`` / ``mixconv``
 (models/resnet.py); ``MODEL.PJS.MOE`` gives the pjs model its encoder
 expert banks (models/moe.py; the other types build dense, as in the JAX
-factory). The parallelism switches, which need several cards, raise
-NotImplementedError naming ROADMAP queue A item 12b. ``TPU.INT8_SCORE`` is a
+factory). ``TPU.FSDP``, ``TENSOR_PARALLEL`` and ``EXPERT_PARALLEL`` build
+the whole model, which the trainer shards (``parallel/compose.py``);
+``SEQ_PARALLEL`` and ``RING_ATTN`` raise NotImplementedError naming ROADMAP
+queue A item 12b part 2, ``PIPELINE_STAGES > 1`` part 3. ``TPU.INT8_SCORE`` is a
 scoring switch, read by the entries that score (the scorer quantizes the
 blocks' GEMMs while it scores), and builds the same model.
 """
@@ -33,12 +35,9 @@ def _unported(config):
     """(switched-on option, ROADMAP item) pairs the port does not run."""
     tpu = config.TPU
     checks = [
-        (tpu.SEQ_PARALLEL, "TPU.SEQ_PARALLEL", "queue A item 12b"),
-        (tpu.RING_ATTN, "TPU.RING_ATTN", "queue A item 12b"),
-        (tpu.FSDP, "TPU.FSDP", "queue A item 12b"),
-        (tpu.TENSOR_PARALLEL, "TPU.TENSOR_PARALLEL", "queue A item 12b"),
-        (tpu.EXPERT_PARALLEL, "TPU.EXPERT_PARALLEL", "queue A item 12b"),
-        (tpu.PIPELINE_STAGES > 1, "TPU.PIPELINE_STAGES", "queue A item 12b"),
+        (tpu.SEQ_PARALLEL, "TPU.SEQ_PARALLEL", "queue A item 12b part 2"),
+        (tpu.RING_ATTN, "TPU.RING_ATTN", "queue A item 12b part 2"),
+        (tpu.PIPELINE_STAGES > 1, "TPU.PIPELINE_STAGES", "queue A item 12b part 3"),
         (not tpu.USE_PALLAS_ATTENTION, "TPU.USE_PALLAS_ATTENTION False",
          "none: the port always runs its attention kernel on the card"),
     ]

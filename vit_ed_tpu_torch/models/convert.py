@@ -9,6 +9,9 @@ a converted JAX tree loads with ``strict=True``. Layout changes:
 - PatchEmbed conv: flax [kh, kw, C, D] -> torch [D, C, kh, kw]
 - LayerNorm: scale/bias -> weight/bias
 - the fused qkv / kv projections keep their q|k|v column order
+- ``flax_leaf`` reads these rules backwards: a torch parameter's flax
+  module and leaf names, shape and dims (the parallelism rules decide on
+  the flax leaf, as the JAX package does)
 - a MoE expert bank (models/moe.py): the router's kernel [D, E] -> the
   torch Linear weight ``mlp.router.weight`` [E, D]; ``w1`` [E, D, H],
   ``b1``, ``w2`` [E, H, D] and ``b2`` keep the flax layout and names (the
@@ -26,11 +29,39 @@ LayerScale vectors keep their names.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+
+class FlaxLeaf(NamedTuple):
+    """The flax leaf a torch parameter converts from: its module and leaf
+    names, its shape, and for each flax dim the torch dim it becomes."""
+    parent: str
+    leaf: str
+    shape: Tuple[int, ...]
+    torch_dims: Tuple[int, ...]
+
+
+def flax_leaf(name: str, shape: Sequence[int]) -> FlaxLeaf:
+    """The conversion's names and transpositions read backwards: a 2-D
+    ``*.weight`` is a Dense kernel [in, out] (transposed), a 4-D one a conv
+    kernel [kh, kw, C, D], a 1-D one a norm's ``scale``; every other leaf
+    keeps its name and layout."""
+    parts = name.split(".")
+    leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    nd = len(shape)
+    dims = tuple(range(nd))
+    if leaf == "weight":
+        if nd == 2:
+            leaf, dims = "kernel", (1, 0)
+        elif nd == 4:
+            leaf, dims = "kernel", (2, 3, 1, 0)
+        else:
+            leaf = "scale"
+    return FlaxLeaf(parent, leaf, tuple(int(shape[d]) for d in dims), dims)
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

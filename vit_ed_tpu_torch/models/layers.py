@@ -52,12 +52,17 @@ from vit_ed_tpu_torch.ops.attention import (
 from vit_ed_tpu_torch.models.moe import MoeMlp
 from vit_ed_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
 from vit_ed_tpu_torch.ops.quant import int8_linear
+from vit_ed_tpu_torch.parallel.mesh import enter_group, reduce_group
 
 
 class Linear(nn.Module):
     """Dense layer with flax's bf16 rounding (see module docstring). While
     ``int8_weight`` holds the quantized weight
-    (``ops.quant.int8_gemms``), the layer is the dynamic int8 GEMM."""
+    (``ops.quant.int8_gemms``), the layer is the dynamic int8 GEMM.
+
+    Tensor-parallel (``parallel/tp.py``): a column-parallel layer's input
+    enters its ``enter_group``; a row-parallel layer's product is summed
+    over its ``reduce_group`` before the bias is added once."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -65,11 +70,14 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         nn.init.trunc_normal_(self.weight, std=0.02)
         self.int8_weight: Optional[Tuple[torch.Tensor, ...]] = None
+        self.enter_group = None
+        self.reduce_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8_weight is not None:
             return int8_linear(x, *self.int8_weight, self.bias)
-        y = F.linear(x, self.weight.to(x.dtype))
+        y = F.linear(enter_group(x, self.enter_group), self.weight.to(x.dtype))
+        y = reduce_group(y, self.reduce_group)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -141,8 +149,9 @@ class Dropout(DropPath):
 def shard_draws(model: nn.Module, rank: int, world: int) -> None:
     """Make every module of ``model`` that draws per sample (DropPath,
     Dropout, the MoE router's jitter: each with a ``shard`` attribute) draw
-    rank ``rank``'s rows of the draws of a global batch of ``world`` local
-    batches."""
+    share ``rank``'s rows of the draws of a global batch of ``world`` equal
+    shares. The trainer passes the mesh's data index and data size: the
+    ``model`` and ``expert`` peers of one data index draw the same rows."""
     for m in model.modules():
         if hasattr(m, "shard"):
             m.shard = (rank, world)
@@ -235,12 +244,16 @@ def _explicit_attention(mod: nn.Module, q: torch.Tensor, k: torch.Tensor,
 
 class Attention(nn.Module):
     """Multi-head self-attention on the fused qkv projection; with
-    ``keep_attn`` on the explicit probabilities (module docstring)."""
+    ``keep_attn`` on the explicit probabilities (module docstring).
+    ``route_dim`` is the unsharded width that picks the kernels' route
+    (None: this module's own; tensor-parallel modules hold a share of the
+    heads, ``parallel/tp.py``)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  keep_attn: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.route_dim: Optional[int] = None
         self.keep_attn = keep_attn
         self.attn_map: Optional[torch.Tensor] = None
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
@@ -256,9 +269,9 @@ class Attention(nn.Module):
             if cls_only:
                 out = out[:, :1]
         elif cls_only:
-            out = fused_attention_packed_qkv_cls(qkv, self.num_heads)
+            out = fused_attention_packed_qkv_cls(qkv, self.num_heads, width=self.route_dim)
         else:
-            out = fused_attention_packed_qkv(qkv, self.num_heads)
+            out = fused_attention_packed_qkv(qkv, self.num_heads, width=self.route_dim)
         return self.proj(out)
 
 
@@ -271,6 +284,7 @@ class CrossAttention(nn.Module):
                  keep_attn: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.route_dim: Optional[int] = None     # as Attention's
         self.keep_attn = keep_attn
         self.attn_map: Optional[torch.Tensor] = None
         self.q = Linear(dim, dim, bias=qkv_bias)
@@ -284,8 +298,8 @@ class CrossAttention(nn.Module):
         """Attention against a per-pair precomputed kv [B, Sk, 2C]."""
         if self.keep_attn:
             return self.proj(_explicit_attention(self, self.q(x), *kv.chunk(2, dim=-1)))
-        return self.proj(fused_attention_packed_kv(self.q(x), kv,
-                                                   self.num_heads))
+        return self.proj(fused_attention_packed_kv(self.q(x), kv, self.num_heads,
+                                                   width=self.route_dim))
 
     def attend_kv_shared(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         """``attend_kv`` where ONE context kv [1, Sk, 2C] serves the whole
@@ -293,8 +307,8 @@ class CrossAttention(nn.Module):
         explicit path on the broadcast kv, as in the JAX package."""
         if self.keep_attn:
             return self.attend_kv(x, kv.expand(x.shape[0], -1, -1))
-        return self.proj(fused_attention_packed_kv_shared(self.q(x), kv,
-                                                          self.num_heads))
+        return self.proj(fused_attention_packed_kv_shared(self.q(x), kv, self.num_heads,
+                                                          width=self.route_dim))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         return self.attend_kv(x, self.kv_for(context))

@@ -31,7 +31,13 @@ Beyond the reference, whose model family is dense, as in the JAX package:
   are one all-reduce (``parallel.mesh.all_reduce_sum``, its gradient
   reaching ``P`` and z) over the ranks' equal token counts, divided by the
   world size; the load balance is their product, not a mean of each
-  rank's own. Dispatch and capacity stay per sequence.
+  rank's own. Dispatch and capacity stay per sequence;
+- expert-parallel (``parallel/ep.py``): the bank holds experts
+  ``expert_range`` of E and the router all E. Every ``expert`` peer routes
+  the same tokens, runs its experts on them, and the combine is summed over
+  the ``expert_group`` (``mesh.reduce_group``); the tokens and the gates
+  enter the group with ``mesh.enter_group``, so that their gradients are
+  summed over the peers' experts.
 
 Parameters (the flax leaves' layout except the router, a torch Linear
 weight): ``router.weight`` [E, D], ``w1`` [E, D, H], ``b1`` [E, H], ``w2``
@@ -48,7 +54,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_ed_tpu_torch.ops.gelu import gelu_exact, gelu_tanh
-from vit_ed_tpu_torch.parallel.mesh import all_reduce_sum, group_world
+from vit_ed_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    enter_group,
+    group_world,
+    reduce_group,
+)
 
 
 def collect_moe_aux(aux: torch.Tensor, balance_weight: float,
@@ -76,6 +87,8 @@ class MoeMlp(nn.Module):
         self.act = gelu_tanh if fast_gelu else gelu_exact
         self.generator: Optional[torch.Generator] = None
         self.shard = (0, 1)   # (rank, world) of the rows x holds
+        self.expert_group = None        # expert-parallel: the peers' group
+        self.expert_range = (0, num_experts)   # the experts this bank holds
         e = num_experts
         self.router = nn.Linear(dim, e, bias=False)
         self.w1 = nn.Parameter(torch.empty(e, dim, hidden_dim))
@@ -113,6 +126,7 @@ class MoeMlp(nn.Module):
         top_p = torch.gather(probs, -1, top_i)                   # [B, T, k]
         oh = F.one_hot(top_i, e).float()                         # [B, T, k, E]
         gates = top_p if k == 1 else top_p / top_p.sum(-1, keepdim=True)
+        gates = enter_group(gates, self.expert_group)
 
         frac = oh[:, :, 0, :].mean(dim=(0, 1))                   # [E]
         mean_p = probs.mean(dim=(0, 1))
@@ -142,10 +156,14 @@ class MoeMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         dispatch, combine, aux = self.route(x)
         cdt = x.dtype
+        e0, e1 = self.expert_range
+        if (e0, e1) != (0, self.num_experts):
+            dispatch, combine = dispatch[:, :, e0:e1], combine[:, :, e0:e1]
+        x = enter_group(x, self.expert_group)
         expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(cdt), x)
         h = torch.einsum("ebcd,edh->ebch", expert_in, self.w1.to(cdt))
         h = self.act(h + self.b1.to(cdt)[:, None, None, :])
         out = torch.einsum("ebch,ehd->ebcd", h, self.w2.to(cdt))
         out = out + self.b2.to(cdt)[:, None, None, :]
         y = torch.einsum("btec,ebcd->btd", combine.to(cdt), out)
-        return y, aux
+        return reduce_group(y, self.expert_group), aux

@@ -615,14 +615,19 @@ def _(tensors, layout, num_heads, scale):
 
 def _attend(layout: str, tensors: Sequence[torch.Tensor],
             num_heads: Optional[int], scale: Optional[float],
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            out: Optional[torch.Tensor] = None,
+            width: Optional[int] = None) -> torch.Tensor:
     """Route a wrapper call by THE DISPATCH RULE of the module docstring.
     Every wrapper is this call on its layout, so the rules of a layout (its
     head count, the batches it accepts) live here: ``num_heads`` is the
     packed layouts' head count; the 4-D layouts read theirs from q [B, H,
     Sq, D] and the flat one has one head per row. ``out``, outside autograd
     only, is the tensor the forward writes into (the card tests fill it
-    with NaN first, so that an element the kernel never stores reads NaN)."""
+    with NaN first, so that an element the kernel never stores reads NaN).
+    ``width``, for the packed layouts, is the unsharded model's C where the
+    call holds a tensor-parallel share of the heads: the route is the one
+    the unsharded call takes, and a share that leaves the pair kernel's
+    contract (C % 128 == 0 per call) raises instead of switching route."""
     if layout in ("bhsd", "bhsd_eval"):
         num_heads = tensors[0].shape[1]
     elif layout == "flat":
@@ -642,7 +647,13 @@ def _attend(layout: str, tensors: Sequence[torch.Tensor],
         if c % num_heads:
             raise ValueError(f"C={c} does not split into {num_heads} heads")
         d = c // num_heads
-        pair = d == HEAD_DIM and c % 128 == 0
+        pair = d == HEAD_DIM and (width or c) % 128 == 0
+        if pair and c % 128:
+            raise NotImplementedError(
+                f"the pair route of a C={width} model takes C % 128 == 0 per call, "
+                f"but this tensor-parallel share has C={c} ({num_heads} heads): "
+                f"use a 'model' axis size that leaves a multiple of two heads of "
+                f"{HEAD_DIM} per rank")
     else:
         d, pair = tensors[0].shape[-1], False
     if not pair:
@@ -671,38 +682,41 @@ def _attend(layout: str, tensors: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def fused_attention_packed_qkv(qkv: torch.Tensor, num_heads: int,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               width: Optional[int] = None) -> torch.Tensor:
     """Self-attention straight from the fused qkv projection [B, S, 3C]
-    -> [B, S, C]."""
-    return _attend("qkv", (qkv,), num_heads, scale)
+    -> [B, S, C]. ``width``: the unsharded C of a tensor-parallel share
+    (``_attend``); the same for every packed wrapper."""
+    return _attend("qkv", (qkv,), num_heads, scale, width=width)
 
 
 def fused_attention_packed_qkv_cls(qkv: torch.Tensor, num_heads: int,
-                                   scale: Optional[float] = None
-                                   ) -> torch.Tensor:
+                                   scale: Optional[float] = None,
+                                   width: Optional[int] = None) -> torch.Tensor:
     """CLS-query self-attention from the fused qkv [B, S, 3C] -> [B, 1, C];
     equals ``fused_attention_packed_qkv(qkv, ...)[:, :1]`` without the
     other S-1 query rows. Its gradient is zero in their dq rows."""
-    return _attend("qkv_cls", (qkv,), num_heads, scale)
+    return _attend("qkv_cls", (qkv,), num_heads, scale, width=width)
 
 
 def fused_attention_packed_kv_shared(q: torch.Tensor, kv: torch.Tensor,
                                      num_heads: int,
-                                     scale: Optional[float] = None
-                                     ) -> torch.Tensor:
+                                     scale: Optional[float] = None,
+                                     width: Optional[int] = None) -> torch.Tensor:
     """Cross-attention where ONE context kv [1, Sk, 2C] serves the whole q
     batch [B, Sq, C] (the row-sharded O(N^2) scan chunk); equals
     ``fused_attention_packed_kv`` on the materialised broadcast.
     Eval-only: raises for an input that requires grad."""
-    return _attend("kv_shared", (q, kv), num_heads, scale)
+    return _attend("kv_shared", (q, kv), num_heads, scale, width=width)
 
 
 def fused_attention_packed_kv(q: torch.Tensor, kv: torch.Tensor,
                               num_heads: int,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              width: Optional[int] = None) -> torch.Tensor:
     """Cross-attention from q [B, Sq, C] and the fused kv projection
     [B, Sk, 2C]."""
-    return _attend("kv", (q, kv), num_heads, scale)
+    return _attend("kv", (q, kv), num_heads, scale, width=width)
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -39,24 +39,48 @@ A group of one rank runs the same code; with no group they are the
 identity, and ``group_world`` raises where the launcher's environment
 names several processes but no group is up: a rank never stands in for the
 global batch with its own.
+
+The process mesh (``create_mesh``, the JAX ``create_mesh`` and the engine's
+axis defaults) lays the ranks out row-major over ``TPU.MESH_SHAPE`` /
+``MESH_AXES``, one rank per device, with one process group per line of each
+axis. Its ``data`` axis carries the batch: the ranks of one data index
+(their ``model`` and ``expert`` peers) hold the same samples, and a
+statistic of the global batch runs over the data axis's group
+(``set_batch_group``; the default group where no mesh narrows it). The
+parameter-sharding rules ride three more collectives on an axis's group:
+
+- ``enter_group(x, group)``: identity forward, all-reduce SUM backward (the
+  input of a column-parallel layer or of this rank's experts);
+- ``reduce_group(x, group)``: all-reduce SUM forward, identity backward
+  (the output of a row-parallel layer or of this rank's experts);
+- ``all_gather_dim`` / ``reduce_scatter_flat``: a leaf's shards gathered
+  along one dim, and the sum over the group of a flat buffer of which each
+  rank keeps its equal part (``reduce_scatter_tensor``, which gloo takes on
+  CPU and CUDA tensors as NCCL does; a backend without it raises).
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
-from typing import Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_rows", "all_reduce_sum", "barrier", "broadcast_one_to_all",
-           "check_world", "env_world_size", "group_world", "host_allreduce_sum",
-           "maybe_init_distributed", "process_allgather", "process_count",
-           "process_index"]
+__all__ = ["Mesh", "Spec", "all_gather_dim", "all_gather_rows", "all_reduce_sum", "barrier",
+           "batch_index", "broadcast_batch", "broadcast_one_to_all", "check_world", "create_mesh",
+           "default_axes", "enter_group", "env_world_size", "group_world",
+           "host_allreduce_sum", "maybe_init_distributed", "process_allgather",
+           "process_count", "process_index", "reduce_group", "reduce_scatter_flat",
+           "set_batch_group"]
 
 _HOST_GROUP = None
+# the group of a statistic of the global batch (the mesh's data axis), or
+# None for the default group: set by the trainer that builds the mesh
+_BATCH_GROUP = None
 CARD_BACKEND = "cpu:gloo,cuda:nccl"
 
 
@@ -163,23 +187,41 @@ def broadcast_one_to_all(x: np.ndarray, is_source: bool) -> np.ndarray:
     return buf.numpy().view(x.dtype).reshape(x.shape)
 
 
-def host_allreduce_sum(x) -> np.ndarray:
+def host_allreduce_sum(x, group=None) -> np.ndarray:
     """The elementwise sum of ``x`` (a number or an integer / float64
-    array) over the ranks, on every rank."""
+    array) over the ranks (of ``group``, a mesh axis's group, where given),
+    on every rank."""
     x = np.asarray(x)
     if process_count() == 1:
         return x
     t = torch.from_numpy(np.array(x, copy=True))
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_host_group())
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group or _host_group())
     return t.numpy()
 
 
+def set_batch_group(group) -> None:
+    """Make ``group`` (a mesh's data-axis group, None for the default
+    group) the group of every statistic of the global batch: SyncBN, the
+    MoE aux terms, batch-hard mining (``all_reduce_sum``,
+    ``all_gather_rows``, ``group_world``, ``batch_index``)."""
+    global _BATCH_GROUP
+    _BATCH_GROUP = group
+
+
+def batch_index() -> int:
+    """This rank's index in the batch group: which share of the global
+    batch it holds."""
+    if not dist.is_initialized():
+        return 0
+    return dist.get_rank(_BATCH_GROUP) if _BATCH_GROUP is not None else dist.get_rank()
+
+
 def group_world() -> int:
-    """The process count of the default group (1 without one) for a
+    """The process count of the batch group (1 without a group) for a
     statistic of the global batch. Raises where the launcher's environment
     names several processes but no group is up."""
     if dist.is_initialized():
-        return dist.get_world_size()
+        return dist.get_world_size(_BATCH_GROUP)
     if env_world_size() > 1:
         raise RuntimeError(
             f"WORLD_SIZE {env_world_size()} but no process group is up: a "
@@ -188,52 +230,231 @@ def group_world() -> int:
     return 1
 
 
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=group)
+    return y
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
-        return y
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
+        return _summed(grad, ctx.group), None
 
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x)
-        ctx.rows = (dist.get_rank() * x.shape[0], x.shape[0])
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.group = group
+        ctx.rows = (dist.get_rank(group) * x.shape[0], x.shape[0])
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
+        grad = _summed(grad, ctx.group)
         start, n = ctx.rows
-        return grad[start:start + n]
+        return grad[start:start + n], None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The elementwise sum of ``x`` over the default group's ranks, on
+    """The elementwise sum of ``x`` over the batch group's ranks, on
     every rank; the gradient of each rank's ``x`` is the sum over ranks of
     the output's gradient. The identity without a group."""
     if not dist.is_initialized():
         group_world()          # raises under WORLD_SIZE > 1
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, _BATCH_GROUP)
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """[world x rows, ...]: every rank's ``x`` (equal shapes) in rank
-    order; the gradient of this rank's ``x`` is its rows of the sum over
-    ranks of the output's gradient. The identity without a group."""
+    """[world x rows, ...]: every batch-group rank's ``x`` (equal shapes) in
+    rank order; the gradient of this rank's ``x`` is its rows of the sum
+    over ranks of the output's gradient. The identity without a group."""
     if not dist.is_initialized():
         group_world()          # raises under WORLD_SIZE > 1
         return x
-    return _AllGatherRows.apply(x)
+    return _AllGatherRows.apply(x, _BATCH_GROUP)
+
+
+# ---------------------------------------------------------------------------
+# The process mesh
+# ---------------------------------------------------------------------------
+
+class Spec(NamedTuple):
+    """One parameter's sharding: split along torch dim ``dim`` over mesh
+    axis ``axis`` (a leaf without one is replicated)."""
+    axis: str
+    dim: int
+
+
+def default_axes(shape: Sequence[int], axes: Sequence[str]) -> Tuple[str, ...]:
+    """The engine's axis names: ``TPU.MESH_AXES`` where set, else
+    ``("data", "model")[:len(shape)]`` for a shape, ``("data",)`` for none."""
+    axes = tuple(axes)
+    if not axes:
+        axes = ("data", "model")[:len(shape)] if shape else ("data",)
+    return axes
+
+
+class Mesh:
+    """Ranks laid out row-major over ``shape`` (one rank per device), with
+    one process group per line of each axis (None for an axis of one rank,
+    or without a process group) and the group of this rank's peers: the
+    ranks of its data index."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], rank: int,
+                 groups: Dict[str, object], peers):
+        self.axes = tuple(axes)
+        self.shape = dict(zip(self.axes, (int(n) for n in shape)))
+        self.rank = rank
+        coords = np.unravel_index(rank, tuple(self.shape.values()))
+        self.coords = {a: int(i) for a, i in zip(self.axes, coords)}
+        self.groups = groups
+        self.peers = peers
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        """The group of this rank's line along ``axis`` (None without a
+        process group)."""
+        return self.groups.get(axis)
+
+    def peer_source(self) -> int:
+        """The global rank of this data index's first peer (every other
+        axis at index 0): the one whose host batch its peers take."""
+        coords = [self.coords[a] if a == "data" else 0 for a in self.axes]
+        return int(np.ravel_multi_index(coords, tuple(self.shape.values())))
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+def _lines(shape: Tuple[int, ...], axis: int) -> List[List[int]]:
+    """The rank lists of every line along ``axis`` (rank order)."""
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    moved = np.moveaxis(ranks, axis, -1).reshape(-1, shape[axis])
+    return [list(map(int, line)) for line in moved]
+
+
+def create_mesh(shape: Optional[Sequence[int]] = None,
+                axes: Sequence[str] = ("data",)) -> Mesh:
+    """The mesh of ``shape`` over ``axes`` on the processes of the group;
+    no shape: one ``axes[0]`` axis over every rank. Its product must be the
+    process count. Every rank calls it (it creates the groups)."""
+    world = process_count()
+    if not shape:
+        shape, axes = (world,), tuple(axes)[:1]
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"TPU.MESH_SHAPE {list(shape)} and TPU.MESH_AXES "
+                         f"{list(axes)} differ in length")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"TPU.MESH_AXES {list(axes)} repeats an axis")
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"TPU.MESH_SHAPE {list(shape)} holds {math.prod(shape)} ranks, but "
+            f"WORLD_SIZE is {world}: the mesh lays one rank per device over "
+            f"every process")
+    rank = process_index()
+    groups: Dict[str, object] = {}
+    peers = None
+    if dist.is_initialized():
+        # every rank creates every group, in one order; an axis of one rank
+        # gets groups of one (a mesh without a data axis: one per rank), so
+        # that a statistic of the batch never falls back to every rank
+        lines = {axis: _lines(shape, i) for i, axis in enumerate(axes)}
+        if "data" not in lines:
+            lines["data"] = [[r] for r in range(world)]
+        for axis, axis_lines in lines.items():
+            for line in axis_lines:
+                g = dist.new_group(line)
+                if rank in line:
+                    groups[axis] = g
+        ranks = np.arange(world).reshape(shape)
+        blocks = ([ranks.take(d, axis=axes.index("data")).reshape(-1)
+                   for d in range(shape[axes.index("data")])]
+                  if "data" in axes else [ranks.reshape(-1)])
+        for block in blocks:
+            g = dist.new_group(list(map(int, block)))
+            if rank in block:
+                peers = g
+    return Mesh(shape, axes, rank, groups, peers)
+
+
+def broadcast_batch(batch: Dict[str, np.ndarray], src: int, group) -> Dict[str, np.ndarray]:
+    """``batch`` (host arrays of one shape and dtype on every rank of
+    ``group``) as the global rank ``src`` holds it, on every rank of
+    ``group``."""
+    out = {}
+    for key, value in batch.items():
+        value = np.ascontiguousarray(value)
+        buf = _bytes(value).clone()
+        dist.broadcast(buf, src=src, group=group)
+        out[key] = buf.numpy().view(value.dtype).reshape(value.shape)
+    return out
+
+
+class _EnterGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class _ReduceGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def enter_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, whose gradient is summed over ``group`` (each rank's part of
+    the computation that reads ``x`` gives a part of its gradient); the
+    identity for ``group`` None."""
+    return x if group is None else _EnterGroup.apply(x, group)
+
+
+def reduce_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, whose gradient each rank takes
+    whole; the identity for ``group`` None."""
+    return x if group is None else _ReduceGroup.apply(x, group)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) of ``group`` concatenated along
+    ``dim`` in group rank order."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def reduce_scatter_flat(flat: torch.Tensor, group) -> torch.Tensor:
+    """Sum the flat ``flat`` over ``group``; each rank keeps its equal part
+    (group rank order)."""
+    n = dist.get_world_size(group)
+    if flat.numel() % n:
+        raise ValueError(f"{flat.numel()} elements do not split into {n} parts")
+    out = flat.new_empty(flat.numel() // n)
+    dist.reduce_scatter_tensor(out, flat.contiguous(), group=group)
+    return out

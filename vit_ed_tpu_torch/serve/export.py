@@ -43,7 +43,7 @@ Stages, the O(N^2) scan decomposition (models/vit_ed.py):
 A bundle replays on the device type it was exported on. Loaded on another
 one it is moved with ``torch.export.passes.move_to_device_pass`` where the
 installed torch has it, and refused otherwise. Multi-chip bundles (the JAX
-``mesh=``) are not ported (ROADMAP queue A item 12b).
+``mesh=``) are not ported (ROADMAP queue A item 12b part 4).
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ STAGES = ("pair", "pair_u8", "encode", "prepare", "kv", "score_row")
 
 WEIGHTS_FILE = "weights.pt"
 _MULTICHIP = ("multi-chip bundles (a mesh) are not ported yet (ROADMAP queue A "
-              "item 12b)")
+              "item 12b part 4)")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

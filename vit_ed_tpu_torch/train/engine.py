@@ -88,8 +88,30 @@ the global tokens (``models/moe.py``; ``add_moe_aux`` gives each rank its
 share of them), and ``hisfrag_vit`` mines its triplets over the gathered
 batch (``train/losses.py``). A subclass whose JAX counterpart has no
 global-batch result to reproduce says why in ``ONE_PROCESS_ONLY`` and is
-refused (``lr_finder``). A device mesh and every parallelism switch raise,
-naming ROADMAP A12b.
+refused (``lr_finder``).
+
+The process mesh (``TPU.MESH_SHAPE`` / ``MESH_AXES``; ``parallel/mesh.py``)
+lays the ranks out, one per device, with the JAX trainer's axis defaults
+and checks. The global batch is ``BATCH_SIZE x world`` (the JAX
+``BATCH_SIZE x n_devices``) and is split over the ``data`` axis only: the
+ranks of one data index (their ``model`` and ``expert`` peers) load the same
+``BATCH_SIZE x world / data`` samples, with the sampler seeds, the mined
+pairs and the draws of that data index, and take the host batch of their
+first peer (one broadcast per micro-batch), so that every peer computes on
+the same input. ``TPU.FSDP``, ``TENSOR_PARALLEL`` and ``EXPERT_PARALLEL``
+compose per leaf (``parallel/compose.py``): the trainer trains a sharded
+copy (``self.train_model``) of the whole model (``self.model``, which every
+eval, scoring and checkpoint path reads) whose parameters, gradients and
+optimizer moments are this rank's shards. The gradients of the leaves not
+split over ``data`` are all-reduced over the data group (the FSDP shards
+are reduce-scattered in the backward), and the clip reads the global norm.
+``local_params()`` gathers the whole model (every rank calls it) before a
+validate, a save and ``throughput``; while the shards train, the whole
+model's parameters are meta tensors, so a rank holds no whole copy of it
+(``_drop_whole``). Checkpoints keep
+the whole format, written by rank 0, so that one loads under any mesh.
+``TPU.SEQ_PARALLEL``, ``RING_ATTN`` and ``PIPELINE_STAGES > 1`` raise,
+naming ROADMAP A12b parts 2 and 3 (``models/build.py``).
 """
 
 from __future__ import annotations
@@ -102,6 +124,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from vit_ed_tpu_torch.config import get_config
 from vit_ed_tpu_torch.data.build import build_dataset
@@ -115,12 +138,25 @@ from vit_ed_tpu_torch.device import resolve_device
 from vit_ed_tpu_torch.models.build import build_model
 from vit_ed_tpu_torch.models.layers import shard_draws
 from vit_ed_tpu_torch.models.moe import collect_moe_aux
+from vit_ed_tpu_torch.parallel.compose import (
+    composed_param_specs,
+    gather_tensor,
+    live_specs,
+    shard_model,
+    shard_tensor,
+)
+from vit_ed_tpu_torch.parallel.fsdp import regather_in_backward, release_units
 from vit_ed_tpu_torch.parallel.mesh import (
     barrier,
+    broadcast_batch,
+    create_mesh,
+    default_axes,
+    group_world,
     host_allreduce_sum,
     maybe_init_distributed,
     process_count,
     process_index,
+    set_batch_group,
 )
 from vit_ed_tpu_torch.train import checkpoint as ckpt
 from vit_ed_tpu_torch.train.optim import (
@@ -171,11 +207,15 @@ class Trainer:
         self.data_parallel = torch.distributed.is_initialized()
         self.device = resolve_device(device)
         self.config = get_config(args)
-        if self.config.TPU.MESH_SHAPE or self.config.TPU.MESH_AXES:
-            raise NotImplementedError(
-                "TPU.MESH_SHAPE / TPU.MESH_AXES: the port trains on one "
-                "device per process; meshes and parallelism are ROADMAP "
-                "queue A item 12b")
+        shape = list(self.config.TPU.MESH_SHAPE) or None
+        self.mesh = create_mesh(shape, default_axes(shape or (), self.config.TPU.MESH_AXES))
+        self._check_mesh()
+        # the batch's share and its statistics follow the data axis
+        self.data_index, self.data_size = self.mesh.index("data"), self.mesh.size("data")
+        self.local_batch_size = (self.config.DATA.BATCH_SIZE * self.world_size
+                                 // self.data_size)
+        set_batch_group(self.mesh.group("data") if self.data_size < self.world_size
+                        else None)
         if self.world_size > 1 and self.ONE_PROCESS_ONLY:
             raise NotImplementedError(
                 f"several processes (WORLD_SIZE {self.world_size}) are refused: "
@@ -214,10 +254,18 @@ class Trainer:
         # one generator state on every rank; each module draws the global
         # batch's mask and keeps this rank's rows
         self.drop_path_generator = self.model.seed_drop_path(self.config.SEED)
-        shard_draws(self.model, self.rank, self.world_size)
+        shard_draws(self.model, self.data_index, self.data_size)
         n_parameters = sum(p.numel() for p in self.model.parameters())
         self.logger.info(f"number of params: {n_parameters} on {self.device} "
                          f"(compute {self.model.dtype})")
+        tpu = self.config.TPU
+        self.specs = live_specs(composed_param_specs(
+            self.model, tp=tpu.TENSOR_PARALLEL, ep=tpu.EXPERT_PARALLEL, fsdp=tpu.FSDP,
+            data_axis_size=self.data_size), self.mesh)
+        self.sharded = any(spec is not None for spec in self.specs.values())
+        # the model the optimizer updates: ``self.model`` itself, or its
+        # sharded copy (``setup_training``)
+        self.train_model = self.model
 
         self.min_loss = 99999.0
         self.start_epoch = self.config.TRAIN.START_EPOCH
@@ -253,8 +301,134 @@ class Trainer:
         self.moe_aux: Optional[torch.Tensor] = None
         if self.world_size > 1:
             # the weights above are alike on every rank; the data path's
-            # draws are each rank's own
-            set_seed(self.config.SEED + self.rank)
+            # draws are each data index's own
+            set_seed(self.config.SEED + self.data_index)
+
+    def _check_mesh(self) -> None:
+        """The JAX trainer's checks of the switches against the mesh."""
+        tpu, axes = self.config.TPU, self.mesh.axes
+        if (tpu.TENSOR_PARALLEL or tpu.SEQ_PARALLEL) and "model" not in axes:
+            raise ValueError("TPU.TENSOR_PARALLEL/SEQ_PARALLEL need a 'model' "
+                             "mesh axis: set TPU.MESH_SHAPE [data, model] "
+                             "(and TPU.MESH_AXES to rename axes)")
+        if tpu.RING_ATTN and not tpu.SEQ_PARALLEL:
+            raise ValueError("TPU.RING_ATTN requires TPU.SEQ_PARALLEL (the "
+                             "token axis to ring over)")
+        if tpu.FSDP and "data" not in axes:
+            raise ValueError("TPU.FSDP shards over the 'data' mesh axis; "
+                             "TPU.MESH_AXES must keep one")
+        if tpu.EXPERT_PARALLEL:
+            if "expert" not in axes:
+                raise ValueError("TPU.EXPERT_PARALLEL needs an 'expert' mesh "
+                                 "axis: set TPU.MESH_SHAPE [data, expert] and "
+                                 "TPU.MESH_AXES ['data', 'expert']")
+            n_exp = self.config.MODEL.PJS.MOE.EXPERTS
+            if (self.config.MODEL.TYPE != "pjs" or n_exp <= 0
+                    or n_exp % self.mesh.size("expert")):
+                raise ValueError("TPU.EXPERT_PARALLEL needs a pjs model with "
+                                 "MODEL.PJS.MOE.EXPERTS a positive multiple "
+                                 "of the 'expert' axis size")
+
+    # ------------------------------------------------------------ the mesh
+    def _shard_groups(self):
+        """(this rank's shards, the group that shards them) per mesh axis,
+        in axis order: the clip's global norm."""
+        by_axis = {}
+        for name, p in self.train_model.named_parameters():
+            spec = self.specs[name]
+            if spec is not None:
+                by_axis.setdefault(spec.axis, []).append(p)
+        return [(by_axis[a], self.mesh.group(a)) for a in self.mesh.axes if a in by_axis]
+
+    def local_params(self) -> torch.nn.Module:
+        """The whole model (``self.model``) with the trained weights: every
+        shard of the training model gathered, its buffers copied (every
+        rank calls it; the identity without a sharded model). Every eval,
+        scoring and checkpoint path reads it; the next update drops it
+        again (``_drop_whole``)."""
+        if self.train_model is not self.model:
+            own = dict(self.train_model.named_parameters(remove_duplicate=False))
+            buffers = dict(self.model.named_buffers())
+            gathered = {}
+            with torch.no_grad():
+                for name, p in own.items():
+                    if id(p) not in gathered:
+                        spec = self.specs[name]
+                        gathered[id(p)] = nn.Parameter(
+                            p.data.clone() if spec is None
+                            else gather_tensor(p.data, name, spec, self.mesh),
+                            requires_grad=p.requires_grad)
+                self._set_whole(lambda name, _: gathered[id(own[name])])
+                for name, b in self.train_model.named_buffers():
+                    buffers[name].copy_(b)
+        return self.model
+
+    def _drop_whole(self) -> None:
+        """Sharded: put meta tensors in place of the whole model's
+        parameters while the shards train (their shapes stay for the FLOP
+        count, and a forward on them raises); a rank then holds no whole
+        copy of the model."""
+        if self.train_model is not self.model:
+            self._set_whole(lambda _, p: p if p.is_meta else nn.Parameter(
+                torch.empty_like(p, device="meta"), requires_grad=p.requires_grad))
+
+    def _set_whole(self, make) -> None:
+        """Replace each parameter ``name`` of ``self.model`` by ``make(name,
+        parameter)`` (one new object per shared parameter)."""
+        modules = dict(self.model.named_modules(remove_duplicate=False))
+        made = {}
+        for name, p in list(self.model.named_parameters(remove_duplicate=False)):
+            if id(p) not in made:
+                made[id(p)] = make(name, p)
+            mod_name, _, leaf = name.rpartition(".")
+            modules[mod_name]._parameters[leaf] = made[id(p)]
+
+    def _load_whole_state(self, state) -> None:
+        """Load a whole-model state dict into ``self.model`` or, sharded,
+        this rank's shards of it into the training model."""
+        if self.train_model is self.model:
+            self.model.load_state_dict(state, strict=True)
+            return
+        keys = set(self.train_model.state_dict())
+        if set(state) != keys:
+            raise RuntimeError(f"the state's keys differ from the model's: "
+                               f"{sorted(set(state) ^ keys)}")
+        with torch.no_grad():
+            for name, p in self.train_model.named_parameters():
+                p.copy_(shard_tensor(state[name].to(p.device), name, self.specs[name],
+                                     self.mesh))
+            for name, b in self.train_model.named_buffers():
+                if name in state:
+                    b.copy_(state[name])
+
+    def _optimizer_names(self) -> List[str]:
+        """The parameter name of each index of the optimizer's state."""
+        names = {id(p): n for n, p in self.train_model.named_parameters()}
+        return [names[id(p)] for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _whole_optimizer_state(self) -> dict:
+        """The optimizer's state dict in the whole model's form: every moment
+        of a sharded leaf gathered (every rank calls it)."""
+        state = self.optimizer.state_dict()
+        if self.train_model is self.model:
+            return state
+        names = self._optimizer_names()
+        for i, entry in state["state"].items():
+            spec = self.specs[names[i]]
+            state["state"][i] = {
+                k: (gather_tensor(v, names[i], spec, self.mesh)
+                    if torch.is_tensor(v) and v.dim() else v) for k, v in entry.items()}
+        return state
+
+    def _load_optimizer_state(self, state: dict) -> None:
+        """Load a whole-form optimizer state dict (this rank's shards of it)."""
+        if self.train_model is not self.model:
+            names = self._optimizer_names()
+            state = dict(state, state={
+                i: {k: (shard_tensor(v, names[i], self.specs[names[i]], self.mesh)
+                        if torch.is_tensor(v) and v.dim() else v) for k, v in entry.items()}
+                for i, entry in state["state"].items()})
+        self.optimizer.load_state_dict(state)
 
     # ------------------------------------------------------------- data hooks
     def get_transforms(self) -> Dict[str, Callable]:
@@ -273,10 +447,10 @@ class Trainer:
                          f"({len(dataset)} items, repeat {repeat})")
         if mode == "train":
             sampler = DistributedRepeatSampler(
-                len(dataset), num_replicas=self.world_size, rank=self.rank,
+                len(dataset), num_replicas=self.data_size, rank=self.data_index,
                 shuffle=True, repeat=repeat, seed=config.SEED)
             loader = DataLoader(dataset, sampler=sampler,
-                                batch_size=config.DATA.BATCH_SIZE,
+                                batch_size=self.local_batch_size,
                                 num_workers=config.DATA.NUM_WORKERS,
                                 drop_last=True)
         else:
@@ -307,9 +481,9 @@ class Trainer:
         ``rank_loss_weight`` turns into ``1 / world`` of them."""
         self.moe_aux = aux.detach()
         weighted = collect_moe_aux(aux, *moe_aux_weights(self.config))
-        world = process_count()
-        if world > 1:
-            weighted = weighted / (world * self.rank_loss_weight())
+        data = group_world()        # the data axis's ranks
+        if data > 1:
+            weighted = weighted / (data * self.rank_loss_weight())
         return loss + weighted
 
     def make_loss_fn(self, criterion: Callable) -> LossFn:
@@ -340,9 +514,10 @@ class Trainer:
                 for k, v in batch.items()}
 
     def rank_loss_weight(self) -> float:
-        """The factor of this rank's loss that makes the sum over ranks the
-        global loss: ``1 / world`` for a mean over equal local batches."""
-        return 1.0 / self.world_size
+        """The factor of this rank's loss that makes the sum over the data
+        axis the global loss: ``1 / data`` for a mean over equal local
+        batches."""
+        return 1.0 / self.data_size
 
     def share_batches(self, micro_batches: List[Dict[str, np.ndarray]]) -> None:
         """Several processes: add to the host batches what their loss needs
@@ -350,12 +525,17 @@ class Trainer:
         update). Nothing by default."""
 
     def _allreduce_grads(self, loss_sum: torch.Tensor) -> torch.Tensor:
-        """Sum the gradients and ``loss_sum`` over the ranks in one
-        all-reduce of one flat float32 buffer; returns the summed loss."""
-        params = [p for p in self.model.parameters() if p.grad is not None]
+        """Sum the gradients and ``loss_sum`` over the data axis in one
+        all-reduce of one flat float32 buffer (the FSDP shards' gradients,
+        reduce-scattered in the backward, are left out); returns the summed
+        loss. A group of one data index runs it too (one rank of one: its
+        transport then runs the same code)."""
+        params = [p for name, p in self.train_model.named_parameters()
+                  if p.grad is not None and not (
+                      self.specs[name] is not None and self.specs[name].axis == "data")]
         flat = torch.cat([p.grad.reshape(-1) for p in params]
                          + [loss_sum.float().reshape(1)])
-        torch.distributed.all_reduce(flat)
+        torch.distributed.all_reduce(flat, group=self.mesh.group("data"))
         offset = 0
         for p in params:
             p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
@@ -368,23 +548,31 @@ class Trainer:
         the mean of their losses and of their gradients, summed over the
         ranks, clipped. Returns (loss, pre-clip global grad norm) as device
         scalars."""
-        self.model.train()
+        model = self.train_model
+        model.train()
+        self._drop_whole()
         self.optimizer.zero_grad(set_to_none=True)
         n = len(micro_batches)
+        if self.data_size < self.world_size:
+            # the data index's peers compute on its first peer's batch
+            micro_batches[:] = [broadcast_batch(b, self.mesh.peer_source(), self.mesh.peers)
+                                for b in micro_batches]
         if self.data_parallel:
             self.share_batches(micro_batches)
         weight = self.rank_loss_weight() if self.data_parallel else 1.0
         loss_sum = None
         for batch in micro_batches:
-            loss = self.loss_fn(self.model, self._to_device(batch))
+            with regather_in_backward(model):
+                loss = self.loss_fn(model, self._to_device(batch))
             if weight != 1.0:
                 loss = loss * weight
             (loss / n).backward()
+            release_units(model)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         if self.data_parallel:
             loss_sum = self._allreduce_grads(loss_sum)
-        grad_norm = clip_grad_norm(self.model.parameters(),
-                                   self.config.TRAIN.CLIP_GRAD)
+        grad_norm = clip_grad_norm(model.parameters(), self.config.TRAIN.CLIP_GRAD,
+                                   self._shard_groups())
         set_lr(self.optimizer, self.schedule(self.step))
         self.optimizer.step()
         self.step += 1
@@ -395,7 +583,16 @@ class Trainer:
         ``steps_per_epoch`` updates per epoch, the optimizer and the loss
         function."""
         self.schedule = build_schedule(self.config, steps_per_epoch)
-        self.optimizer = build_optimizer(self.config, self.model)
+        if self.sharded and self.train_model is self.model:
+            self.train_model = shard_model(self.model, self.mesh, self.specs)
+            self.drop_path_generator = self.train_model.seed_drop_path(self.config.SEED)
+            shard_draws(self.train_model, self.data_index, self.data_size)
+            self._drop_whole()
+            held = sum(p.numel() for p in self.train_model.parameters())
+            self.logger.info(f"sharded over {self.mesh}: this rank holds {held} of "
+                             f"{sum(p.numel() for p in self.model.parameters())} "
+                             f"parameters")
+        self.optimizer = build_optimizer(self.config, self.train_model)
         self.loss_fn = self.make_loss_fn(self.get_criterion())
 
     def train(self):
@@ -447,12 +644,14 @@ class Trainer:
 
         total_time = str(datetime.timedelta(seconds=int(time.time() - start_time)))
         self.logger.info(f"Training time {total_time}")
+        self.local_params()
         return self
 
     def _agreed_validate(self) -> float:
         """``validate()``, meaned over the ranks: every rank then takes the
         same best-model decision (the ranks of a scan's validation hold the
         same value already)."""
+        self.local_params()
         loss = self.validate()
         if self.world_size == 1:
             return loss
@@ -464,9 +663,11 @@ class Trainer:
         that many updates instead of starting the next one. Rank 0 writes
         (every rank holds the same state); the others wait for it."""
         path = ckpt.checkpoint_path(self.config, name)
+        model = self.local_params()
+        optimizer = self._whole_optimizer_state()
         if self.rank == 0:
-            state = {"model": self.model.state_dict(),
-                     "optimizer": self.optimizer.state_dict(),
+            state = {"model": model.state_dict(),
+                     "optimizer": optimizer,
                      "step": self.step,
                      "in_epoch_opt_steps": int(in_epoch_opt_steps),
                      "drop_path_generator": self.drop_path_generator.get_state()}
@@ -479,8 +680,8 @@ class Trainer:
         path = self.config.MODEL.RESUME
         self.logger.info(f"==============> Resuming from {path}....")
         tree = ckpt.load_checkpoint(path)
-        self.model.load_state_dict(tree["model"], strict=True)
-        self.optimizer.load_state_dict(tree["optimizer"])
+        self._load_whole_state(tree["model"])
+        self._load_optimizer_state(tree["optimizer"])
         self.step = int(tree["step"])
         self.drop_path_generator.set_state(tree["drop_path_generator"])
         self.min_loss = float(tree.get("min_loss", 99999.0))
@@ -641,7 +842,10 @@ class Trainer:
         if len(sync_rates) >= 3:   # one or two intervals are noise
             counted = None if None in step_flops else float(np.mean(step_flops))
             if counted is not None and self.world_size > 1:
-                counted = float(host_allreduce_sum(np.float64(counted)))
+                # each data index's FLOPs, counted on the whole model by
+                # each of its world / data peers
+                counted = float(host_allreduce_sum(np.float64(counted))) * (
+                    self.data_size / self.world_size)
             self._log_mfu(float(np.median(sync_rates)), counted,
                           self.config.MODEL.TYPE, self.world_size)
 
@@ -656,6 +860,7 @@ class Trainer:
         images (pairs) per second. On a card the timed forwards run between
         two CUDA events and end in a synchronise; with TPU.PROFILE_DIR set
         a profiler trace of the timed region is written."""
+        self.local_params()
         x = self._to_device({"samples": self.throughput_batch()})["samples"]
         batch_size = x.shape[0]
         cuda = self.device.type == "cuda"

@@ -18,7 +18,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
-from vit_ed_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_sum, process_index
+from vit_ed_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_sum, batch_index
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -73,8 +73,9 @@ def batch_wise_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor,
     farthest positive and the nearest negative; anchors without a positive
     or without a negative count zero and are left out of the mean.
 
-    The batch is the global batch of the default process group (the JAX
-    loss under jit over the global mesh): this rank's anchors against every
+    The batch is the global batch of the batch group (the default process
+    group, or a mesh's data axis: the JAX loss under jit over the global
+    mesh): this rank's anchors against every
     rank's embeddings and labels (``all_gather_rows``, whose backward brings
     the other ranks' gradients to this rank's rows), self left out by global
     index, the sum divided by the global count of valid anchors. The ranks'
@@ -84,7 +85,7 @@ def batch_wise_triplet_loss(embeddings: torch.Tensor, labels: torch.Tensor,
     others, other_labels = all_gather_rows(embeddings), all_gather_rows(labels)
     d = cosine_distance(embeddings[:, None, :], others[None, :, :])
     same = labels[:, None] == other_labels[None, :]
-    rows = torch.arange(n, device=labels.device)[:, None] + process_index() * n
+    rows = torch.arange(n, device=labels.device)[:, None] + batch_index() * n
     eye = rows == torch.arange(other_labels.shape[0], device=labels.device)[None, :]
     pos_mask = same & ~eye
     neg_mask = ~same

@@ -4,10 +4,14 @@
 - the four step-wise schedules (cosine with a warm-up prefix, linear,
   step, multistep) as plain functions of the accumulated-step counter;
 - weight decay on every parameter except 1-D ones and ``*.bias``, as two
-  parameter groups (the JAX package's ``weight_decay_mask``);
+  parameter groups (the JAX package's ``weight_decay_mask``); a sharded
+  training model (``parallel/compose.py``) keeps each leaf's whole name
+  and rank on its shard, so the groups are the whole model's;
 - gradient clipping with ``torch.nn.utils.clip_grad_norm_`` semantics
   (scale by ``min(1, max_norm / (norm + 1e-6))``), which the JAX package's
-  ``clip_by_global_norm_torch`` was written to match;
+  ``clip_by_global_norm_torch`` was written to match, on the GLOBAL norm:
+  the squares of a sharded leaf's parts are summed over the group that
+  shards it, and a replicated leaf counts once;
 - AdamW, and SGD with nesterov momentum and coupled L2 on the decayed
   group.
 
@@ -22,9 +26,10 @@ from __future__ import annotations
 
 import bisect
 import math
-from typing import Callable, Iterable, List, Sequence
+from typing import Callable, Iterable, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 Schedule = Callable[[int], float]
@@ -135,16 +140,36 @@ def weight_decay_groups(model: nn.Module, weight_decay: float) -> List[dict]:
             {"params": no_decay, "weight_decay": 0.0}]
 
 
-def clip_grad_norm(parameters: Iterable[torch.Tensor],
-                   max_norm: float) -> torch.Tensor:
+def clip_grad_norm(parameters: Iterable[torch.Tensor], max_norm: float,
+                   sharded: Sequence[Tuple[List[torch.Tensor], object]] = ()
+                   ) -> torch.Tensor:
     """The global L2 norm of the gradients BEFORE clipping; with a non-zero
     ``max_norm`` the gradients are scaled in place by
-    ``min(1, max_norm / (norm + 1e-6))``."""
+    ``min(1, max_norm / (norm + 1e-6))``. ``sharded``: (parameters, process
+    group) pairs, in one order on every rank, of the leaves that hold a
+    shard over that group (their squares are summed over it); every other
+    parameter is whole on every rank and counts once."""
     params = [p for p in parameters if p.grad is not None]
+    owned = {p for group_params, _ in sharded for p in group_params}
+
+    def squares(ps):
+        ps = [p for p in ps if p.grad is not None]
+        if not ps:
+            return params[0].grad.new_zeros((), dtype=torch.float32)
+        return torch.stack([torch.linalg.vector_norm(p.grad.float()) ** 2
+                            for p in ps]).sum()
+
+    total = squares([p for p in params if p not in owned])
+    for group_params, group in sharded:
+        part = squares(group_params)
+        dist.all_reduce(part, group=group)
+        total = total + part
+    norm = total.sqrt()
     if max_norm:
-        return torch.nn.utils.clip_grad_norm_(params, max_norm)
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+        coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+        for p in params:
+            p.grad.mul_(coef.to(p.grad.dtype))
+    return norm
 
 
 def build_optimizer(config, model: nn.Module) -> torch.optim.Optimizer:
